@@ -1,0 +1,158 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py).
+
+Inputs are made from a seed with numpy and handed to both packages; where
+the JAX reference draws random numbers from keys, these helpers mirror its
+key derivation and pass the resulting arrays to the port.  No tests here.
+JAX is imported inside the functions that need it, so the card-only tests
+can use the mesh and ray makers on a machine without JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mirres_restir_nerf_mesh_torch.render.stage1 import FrameRandoms
+
+TORCH_THREADS = 2
+
+
+def t(x, dtype=None) -> torch.Tensor:
+    """numpy / jax array -> CPU tensor."""
+    a = np.asarray(x)
+    return torch.from_numpy(a.copy() if dtype is None else a.astype(dtype))
+
+
+def n(x) -> np.ndarray:
+    """tensor / jax array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_close_mostly(got, ref, rtol=1e-5, atol=1e-6, frac=0.999, rtol_all=2e-4):
+    """At least `frac` of the elements within (rtol, atol), every element within
+    rtol_all: for ill-conditioned expressions (the GGX peak at tiny alpha, the
+    barycentrics of grazing triangles) where XLA's CPU code and PyTorch
+    round a cancelling sum differently."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    ok = np.abs(got - ref) <= atol + rtol * np.abs(ref)
+    assert ok.mean() >= frac, f"only {ok.mean():.5f} within rtol {rtol}"
+    np.testing.assert_allclose(got, ref, rtol=rtol_all, atol=atol)
+
+
+def tree_np(tree):
+    """JAX pytree of arrays -> same nested dicts/lists of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_np(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_np(v) for v in tree]
+    return np.asarray(tree)
+
+
+def make_sphere(n_theta=24, n_phi=48, radius=0.7):
+    th = np.linspace(1e-3, np.pi - 1e-3, n_theta)
+    ph = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    pts = radius * np.stack([np.sin(T) * np.cos(P), np.sin(T) * np.sin(P), np.cos(T)], -1).reshape(-1, 3)
+    tris = []
+    for i in range(n_theta - 1):
+        for j in range(n_phi):
+            a, b = i * n_phi + j, i * n_phi + (j + 1) % n_phi
+            c, d = (i + 1) * n_phi + j, (i + 1) * n_phi + (j + 1) % n_phi
+            tris += [[a, b, c], [b, d, c]]
+    return np.asarray(pts, np.float32), np.asarray(tris, np.int32)
+
+
+def bumpy_sphere(n_theta, n_phi):
+    """Sphere with radial noise: many morton clusters, grazing-ray heavy
+    (the fixture of tests/test_tile_tracer.py)."""
+    v, tr = make_sphere(n_theta, n_phi)
+    v = v * (1.0 + 0.15 * np.sin(9 * v[:, :1]) * np.cos(7 * v[:, 1:2]))
+    return v.astype(np.float32), tr
+
+
+def shell_rays(n, seed, radius=1.2):
+    """Incoherent rays: origins on a sphere around the mesh, random dirs."""
+    rng = np.random.RandomState(seed)
+    o = rng.normal(size=(n, 3)).astype(np.float32)
+    o = o / np.linalg.norm(o, axis=1, keepdims=True) * radius
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def camera_rays(n, seed, origin=(0.0, 0.0, 2.5)):
+    """Coherent pinhole rays toward -z."""
+    rng = np.random.RandomState(seed)
+    o = np.tile(np.asarray(origin, np.float32), (n, 1))
+    d = np.concatenate([rng.uniform(-0.45, 0.45, (n, 2)).astype(np.float32),
+                        -np.ones((n, 1), np.float32)], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def brdf_u_jax(key, N):
+    """brdf_sample's own draws: (u_sel [N], u_d [N,2], u_s [N,2])."""
+    import jax
+
+    k_sel, k_d, k_s = jax.random.split(key, 3)
+    return (jax.random.uniform(k_sel, (N,)), jax.random.uniform(k_d, (N, 2)),
+            jax.random.uniform(k_s, (N, 2)))
+
+
+def brdf_u_cols(u):
+    """(u_sel, u_d, u_s) -> [N, 5] numpy block."""
+    return np.concatenate([np.asarray(u[0])[:, None], np.asarray(u[1]), np.asarray(u[2])], axis=1)
+
+
+def bounce_u_jax(kb, N):
+    """trace_bounce's draws from its key, as the port's [N, 10] block."""
+    import jax
+
+    k_nee, k_next, k_mat = jax.random.split(kb, 3)
+    nee = np.asarray(jax.random.uniform(k_nee, (N, 2)))
+    mat = np.asarray(jax.random.uniform(k_mat, (N, 3)))
+    return np.concatenate([nee, mat, brdf_u_cols(brdf_u_jax(k_next, N))], axis=1)
+
+
+def indirect_u_jax(key, N, bounces):
+    """render_indirect's draws from its key, as the port's [N, 5+10B] block."""
+    import jax
+
+    k0, key = jax.random.split(key)
+    cols = [brdf_u_cols(brdf_u_jax(k0, N))]
+    for _ in range(bounces):
+        key, kb = jax.random.split(key)
+        cols.append(bounce_u_jax(kb, N))
+    return np.concatenate(cols, axis=1).astype(np.float32)
+
+
+def direct_u_jax(k_s, P):
+    """The per-spp draws render_stage1 passes to sample_direct_mis, as the
+    port's [P, 8] block."""
+    import jax
+
+    k_env, k_brdf, k_pick = jax.random.split(k_s, 3)
+    env = np.asarray(jax.random.uniform(k_env, (P, 2)))
+    pick = np.asarray(jax.random.uniform(k_pick, (P,)))[:, None]
+    return np.concatenate([env, brdf_u_cols(brdf_u_jax(k_brdf, P)), pick], axis=1).astype(np.float32)
+
+
+def frame_randoms_jax(key, P, spp, bounces, H) -> FrameRandoms:
+    """render_stage1's (use_restir=False, compact_chunks=1) draws from `key`."""
+    import jax
+
+    k_jit, k_di, k_ind, _ = jax.random.split(key, 4)
+    jitter = np.asarray(jax.random.normal(k_jit, (P, 3)))
+    tap = (np.asarray(jax.random.normal(jax.random.fold_in(k_jit, 7), (P, 2))) if H > 0
+           else np.zeros((P, 2), np.float32))
+    direct = np.stack([direct_u_jax(jax.random.fold_in(k_di, s), P) for s in range(spp)])
+    return FrameRandoms(jitter=t(jitter), tap=t(tap), direct=t(direct),
+                        indirect=t(indirect_u_jax(k_ind, spp * P, bounces)))
+
+
+def small_spec_kwargs():
+    """Narrow field widths for the parity tests."""
+    return dict(hidden_dim=16, hidden_dim_color=16, grid_levels=4, grid_log2_hashmap_size=12,
+                grid_desired_resolution=32)
