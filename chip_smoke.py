@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's stage-1 forward frame on one NVIDIA card.
+"""Drive the PyTorch + CUDA port's stage-1 forward frame and train step on
+one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
 
@@ -19,16 +20,37 @@ Phases (any failure exits non-zero):
    env-sampled directions, as sample_direct_mis traces them; same budget).
    Hit prims agree on >= 99.99% of
    rays, the uncertain masks are equal, and t, u, v agree within 1e-5
-   relative where the prims agree.
+   relative where the prims agree.  K4 (scatter-add, the hash-grid
+   backward) at one material encode's backward of the bench frame: the
+   covered G-buffer points' 16 levels x 8 corners of absolute row ids into
+   the 6,328,848-row material table, random fp32 updates; within
+   1e-5 * sum|upd| at each row; timed beside its plain version and the one
+   PyTorch call that computes the same function (index_add_ on a zeroed
+   table).
 4. The main path: the launch counters are zeroed, then ``render_stage1``
    (use_restir=False) renders bench.py's operating point (256x256, spp 32,
    2 bounces, ~100k triangles, k_cap 640, queue_avg 256/64, bf16 MLPs) once
    warm and three times timed, and a ~6k-triangle mesh frame (dense path)
    once; the counters are read right after.  Outputs must be finite,
    uncertain_count 0, and both kernels launched.
+4b. The train step (the counters zeroed again): bench.py's train-step
+   config with use_restir=False and denoise_iters=0, on the bench frame's
+   pixels and alpha and its sky + sun env, one warm and three timed steps.
+   Loss, params and Adam moments (hence gradients) must be finite,
+   uncertain_count 0, and K4 launched 3 times a step (material, jittered
+   material and NeRF encodes).
 5. Reference check: a 64x64, spp-2 frame of the small mesh in fp32 on the
    card against the same frame on the CPU (the plain versions, which the
    CPU tests hold against the JAX package), same weights and randoms.
+5b. The same for one train step: loss within 1e-3 relative; per optimizer
+   group the gradient and the params after the step within 5e-2 relative
+   L2 with cosine >= 0.999, and the NeRF group's gradient (its image
+   depends on the G-buffer hits alone, no Monte Carlo decision) within
+   1e-4.  (About 1% of the pixels take other Monte Carlo decisions on the
+   card, as in phase 5; the material-encoder rows those pixels touch carry
+   other gradients, ~2.6% of the group's L2, and Adam's first step moves
+   every entry by about +-lr, so an entry whose gradient is rounding noise
+   moves 2 lr apart: ~3.7% on the offsets and the material encoder.)
 6. Print the kernel table as one JSON line, the card line, and as the last
    line {"ok": true, "device": {...}}.
 """
@@ -62,6 +84,8 @@ BENCH_FACES = 100_000
 SMALL_FACES = 6_000
 BOUNCE_RAYS = 1 << 20
 TIMED_FRAMES = 3
+TIMED_STEPS = 3
+K4_STEP_LAUNCHES = 3        # material, jittered material, NeRF encode backward
 
 
 def log(*a):
@@ -260,6 +284,42 @@ def check_tile(name, cm, rays_o, rays_d, any_hit, sort, k_cap, queue_avg, t_max=
                 plain_ms=plain_ms, **bound(flops, nbytes))
 
 
+def check_scatter(verts, tris, cm, cam, gen):
+    """K4 against its plain version at one material encode's backward of
+    the bench frame (the covered G-buffer points' row ids, random fp32
+    updates), timed beside the plain version and index_add_."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.models.material import MaterialSpec
+    from mirres_restir_nerf_mesh_torch.ops import hashgrid
+    from mirres_restir_nerf_mesh_torch.ops.scatter import scatter_add, scatter_add_plain
+    from mirres_restir_nerf_mesh_torch.ops.tracer import Tracer
+    from mirres_restir_nerf_mesh_torch.render.gbuffer import raycast_gbuffer
+
+    gb = raycast_gbuffer(verts, tris, Tracer(cm, k_cap=640, queue_avg=256),
+                         cam["rays_o"], cam["rays_d"])
+    spec = MaterialSpec(bound=1.0).grid
+    idx = hashgrid.encode_rows(gb.position[gb.mask], spec, bound=1.0)[0].reshape(-1).contiguous()
+    rows = spec.n_params
+    upd = torch.randn((idx.shape[0], spec.level_dim), generator=gen, device=idx.device)
+    k = scatter_add(idx, upd, rows)
+    torch.cuda.synchronize()
+    p = scatter_add_plain(idx, upd, rows)
+    err = (k - p).abs()
+    if not bool((err <= 1e-5 * scatter_add_plain(idx, upd.abs(), rows) + 1e-30).all()):
+        raise AssertionError(f"K4 scatter_add: differs from its plain version by {float(err.max())}")
+    idx_l = idx.long()
+    ms = cuda_ms(lambda: scatter_add(idx, upd, rows), 10)
+    plain_ms = cuda_ms(lambda: scatter_add_plain(idx, upd, rows), 3)
+    library_ms = cuda_ms(lambda: torch.zeros((rows, upd.shape[1]), device=upd.device)
+                         .index_add_(0, idx_l, upd), 10)
+    nbytes = idx.numel() * 4 + upd.numel() * 4 + rows * upd.shape[1] * 4
+    return dict(shape=f"{int(gb.mask.sum())} points x {spec.num_levels} levels x 8 corners = "
+                      f"{idx.numel()} updates of {upd.shape[1]} into {rows} rows",
+                max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(0, nbytes))
+
+
 def frame_static(tris, H, W, spp, compute_dtype, **kw):
     from mirres_restir_nerf_mesh_torch.models.material import MaterialSpec
     from mirres_restir_nerf_mesh_torch.models.nerf import NeRFSpec
@@ -290,10 +350,39 @@ def make_params(n_verts: int, seed: int, device):
 
 
 def camera(H, W, device):
-    from mirres_restir_nerf_mesh_torch.data.synthetic import frame_rays, synthetic_cameras
+    """bench.py's frame: the synthetic orbit camera at radius 1.3, its rays,
+    and the analytic sphere's pixels on white and alpha."""
+    from mirres_restir_nerf_mesh_torch.data.synthetic import frame_batch, make_synthetic_dataset
 
-    poses, intr = synthetic_cameras(n_frames=1, H=H, W=W, radius=1.3)
-    return frame_rays(poses[0], intr, H, W, device)
+    poses, intr, images = make_synthetic_dataset(n_frames=1, H=H, W=W, radius=1.3)
+    return frame_batch(poses[0], intr, images[0], device)
+
+
+def train_config(spp: int):
+    """bench.py's train-step config (use_restir and denoise_iters come from
+    the static: off in this slice)."""
+    from mirres_restir_nerf_mesh_torch.config import Config, finalize
+
+    return finalize(Config(bound=1.0, stage=1, iters=7500, use_brdf=True, spp=spp, pt_bounces=2,
+                           env_h=64, env_w=128, ssaa=1, lambda_tv=0.0))
+
+
+def check_state(state, aux):
+    """Finite loss, params and Adam moments (a non-finite gradient makes the
+    moments non-finite), uncertain_count 0."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.train.stage1 import group_leaves
+
+    if not bool(torch.isfinite(aux["loss"])):
+        raise AssertionError(f"train step: loss {float(aux['loss'])}")
+    for g, leaves in group_leaves(state.params).items():
+        st = state.opt_state[g]
+        for x in leaves + st.mu + st.nu:
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"train step: non-finite params or moments in group {g}")
+    if float(aux["uncertain_count"]) != 0:
+        raise AssertionError(f"train step: uncertain_count {float(aux['uncertain_count'])}")
 
 
 def check_outputs(out, P):
@@ -352,24 +441,25 @@ def compare_frames(gpu, cpu, P, out_dir):
     return res
 
 
-def profile_frame(render, out_dir):
-    """torch.profiler over one frame: device busy time (sum of kernel times)
-    against the frame's wall time, the top kernels, and the device span of
-    the frame's ranges (gbuffer, fields, indirect, direct, antialias,
-    tile_prep / tile_kernel / tile_finish) -> summary dict; the full table
-    goes to out_dir/frame_profile.txt when out_dir is given."""
+FRAME_RANGES = ("gbuffer", "fields", "indirect", "direct", "antialias", "tile_prep",
+                "tile_kernel", "tile_finish")
+
+
+def profile_run(run, out_dir, ranges, table_name):
+    """torch.profiler over one run(): device busy time (sum of kernel times)
+    against its wall time, the top kernels, and the device span of the
+    given record_function ranges -> summary dict; the full table goes to
+    out_dir/table_name when out_dir is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render()
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ev = prof.key_averages()
-    ranges = ("gbuffer", "fields", "indirect", "direct", "antialias", "tile_prep",
-              "tile_kernel", "tile_finish")
     dev_ms = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 for e in ev}
     # device-side work: kernels, copies and fills carry no host time; the
     # ranges' device spans (first to last kernel, gaps included) and the
@@ -379,11 +469,116 @@ def profile_frame(render, out_dir):
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     if out_dir is not None:
-        (out_dir / "frame_profile.txt").write_text(ev.table(sort_by="self_device_time_total",
-                                                            row_limit=60))
+        (out_dir / table_name).write_text(ev.table(sort_by="self_device_time_total",
+                                                   row_limit=60))
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
             "range_device_span_ms": {k: dev_ms.get(k, 0.0) for k in ranges},
             "top_kernels_ms": [[k[:80], v] for k, v in top]}
+
+
+def profile_train_phases(state, static, verts, topo, batch, cfg, gen, out_dir):
+    """One train step cut into its three phases (forward: render and loss;
+    backward: autograd.grad of every leaf; optimizer: the five Adam groups),
+    each under its own torch.profiler (the backward's kernels launch from
+    autograd's own thread, which a record_function range on this thread
+    does not see) -> {phase: profile_run summary}."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.train import stage1 as tr
+
+    groups = {g: [x.detach().requires_grad_(True) for x in leaves]
+              for g, leaves in tr.group_leaves(state.params).items()}
+    params = tr.params_from_groups(state.params, groups)
+    flat = [x for g in tr.GROUPS for x in groups[g]]
+    box = {}
+
+    def forward():
+        box["loss"] = tr.stage1_loss(params, static, verts, topo, batch, cfg, gen)[0]
+
+    def backward():
+        box["grads"] = iter(torch.autograd.grad(box["loss"], flat, allow_unused=True))
+
+    def optimizer():
+        grads = {g: [next(box["grads"]) for _ in groups[g]] for g in tr.GROUPS}
+        tr.make_optimizer(cfg).step(state.params, grads, state.opt_state)
+
+    return {name: profile_run(fn, out_dir, FRAME_RANGES if name == "forward" else (),
+                              f"train_{name}_profile.txt")
+            for name, fn in (("forward", forward), ("backward", backward),
+                             ("optimizer", optimizer))}
+
+
+def group_agreement(got, ref):
+    """{group: (relative L2, cosine)} of two {group: [tensors]} (None = 0),
+    each group's leaves taken as one vector, in float64 on the CPU."""
+    import torch
+
+    res = {}
+    for g in ref:
+        a = torch.cat([(torch.zeros_like(r) if x is None else x).detach().cpu().double().reshape(-1)
+                       for x, r in zip(got[g], ref[g])])
+        b = torch.cat([(torch.zeros_like(r) if r is None else r).detach().cpu().double().reshape(-1)
+                       for r in ref[g]])
+        nb = float(b.norm())
+        res[g] = (float((a - b).norm()) / max(nb, 1e-300),
+                  float(a @ b) / max(float(a.norm()) * nb, 1e-300))
+    return res
+
+
+def state_to(state, dev):
+    from mirres_restir_nerf_mesh_torch.train.stage1 import AdamState
+
+    p = state.params
+    params = type(p)(*(tree_to(x, dev) for x in p))
+    opt = {g: AdamState(st.count, tree_to(st.mu, dev), tree_to(st.nu, dev))
+           for g, st in state.opt_state.items()}
+    return type(state)(params, opt, state.step)
+
+
+def check_train_reference(v_small, f_small, vs_dev, seed, dev):
+    """One train step of the 64x64, spp-2, fp32 small-mesh case on the card
+    against the same step on the CPU: same params, state and randoms (bounds:
+    the module docstring, phase 5b).  "update" (params after minus before)
+    is reported, not gated."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.render.stage1 import draw_frame_randoms
+    from mirres_restir_nerf_mesh_torch.train import stage1 as tr
+    from mirres_restir_nerf_mesh_torch.train.losses import build_topology
+
+    Hs = Ws = 64
+    st = frame_static(f_small, Hs, Ws, 2, torch.float32)
+    cfg = train_config(2)
+    topo = build_topology(f_small, v_small.shape[0])
+    p_cpu = make_params(v_small.shape[0], seed, "cpu")
+    s_cpu = tr.Stage1State(p_cpu, tr.make_optimizer(cfg).init(p_cpu),
+                           torch.zeros((), dtype=torch.int32))
+    s_gpu = state_to(s_cpu, dev)
+    b_cpu = camera(Hs, Ws, "cpu")
+    b_gpu = {k: x.to(dev) for k, x in b_cpu.items()}
+    rnd = draw_frame_randoms(Hs * Ws, st, torch.Generator().manual_seed(seed + 2), "cpu")
+    rnd_gpu = type(rnd)(*(x.to(dev) for x in rnd))
+    v_cpu = torch.as_tensor(v_small)
+    loss_c, _, g_c = tr.loss_and_grads(p_cpu, st, v_cpu, topo, b_cpu, cfg, rand=rnd)
+    loss_g, _, g_g = tr.loss_and_grads(s_gpu.params, st, vs_dev, topo, b_gpu, cfg, rand=rnd_gpu)
+    new_c, _ = tr.make_train_step(cfg, st, v_cpu, topo)(s_cpu, b_cpu, rand=rnd)
+    new_g, _ = tr.make_train_step(cfg, st, vs_dev, topo)(s_gpu, b_gpu, rand=rnd_gpu)
+    before = tr.group_leaves(p_cpu)
+    after_c, after_g = tr.group_leaves(new_c.params), tr.group_leaves(new_g.params)
+    delta = {g: [a - b for a, b in zip(after_c[g], before[g])] for g in before}
+    delta_g = {g: [a.cpu() - b for a, b in zip(after_g[g], before[g])] for g in before}
+    res = {"loss_cpu": float(loss_c), "loss_card": float(loss_g),
+           "loss_rel": abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
+           "grad": group_agreement(g_g, g_c), "params_after": group_agreement(after_g, after_c),
+           "update": group_agreement(delta_g, delta)}
+    log("train reference check (card vs CPU, 64x64 spp 2 fp32): " + json.dumps(res))
+    fails = ["loss"] if res["loss_rel"] > 1e-3 else []
+    fails += ["grad:net"] if res["grad"]["net"][0] > 1e-4 else []
+    for what in ("grad", "params_after"):
+        fails += [f"{what}:{g}" for g, (rel, cos) in res[what].items() if rel > 5e-2 or cos < 0.999]
+    if fails:
+        raise AssertionError(f"train reference check failed for {fails}")
+    return res
 
 
 def main(argv=None) -> int:
@@ -393,7 +588,8 @@ def main(argv=None) -> int:
                     help="directory for the full results, the profile table and both "
                          "reference-check frames (default: none written)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one bench frame (torch.profiler) after the main path")
+                    help="also profile one bench frame and one train step (torch.profiler) "
+                         "after their main-path runs")
     args = ap.parse_args(argv)
 
     import torch
@@ -404,9 +600,11 @@ def main(argv=None) -> int:
         return 2
     from mirres_restir_nerf_mesh_torch import cuda_build
     from mirres_restir_nerf_mesh_torch.models import envlight
-    from mirres_restir_nerf_mesh_torch.ops import dense_tracer, tile_tracer
+    from mirres_restir_nerf_mesh_torch.ops import dense_tracer, scatter, tile_tracer
     from mirres_restir_nerf_mesh_torch.ops.cluster_bvh import build_clusters
     from mirres_restir_nerf_mesh_torch.render.stage1 import draw_frame_randoms, render_stage1
+    from mirres_restir_nerf_mesh_torch.train import stage1 as train1
+    from mirres_restir_nerf_mesh_torch.train.losses import build_topology
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -459,6 +657,8 @@ def main(argv=None) -> int:
     for c in k1_checks:
         log("K1 tile_trace: " + json.dumps(c))
     del bo, bd, so, sd, st_max
+    k4 = check_scatter(vb, fb, cm_big, cam, gen)
+    log("K4 scatter_add: " + json.dumps(k4))
     torch.cuda.empty_cache()
 
     # ---- 4. the main path: counters zeroed, frames rendered, counters read
@@ -467,8 +667,9 @@ def main(argv=None) -> int:
     params = make_params(v_big.shape[0], args.seed, dev)
     static_s = frame_static(f_small, H, W, FRAME_SPP, torch.bfloat16)
     params_s = make_params(v_small.shape[0], args.seed, dev)
-    tile_tracer.queue_trace.launches = 0
-    dense_tracer.dense_hit.launches = 0
+    counters = (tile_tracer.queue_trace, dense_tracer.dense_hit, scatter.scatter_add)
+    for c in counters:
+        c.launches = 0
     times, outs = [], None
     for i in range(1 + TIMED_FRAMES):
         torch.cuda.synchronize()
@@ -482,8 +683,7 @@ def main(argv=None) -> int:
     k1_frame = tile_tracer.queue_trace.launches
     out_s = render_stage1(params_s, static_s, vs, cam["rays_o"], cam["rays_d"], generator=gen)
     torch.cuda.synchronize()
-    launches = {"tile_trace": tile_tracer.queue_trace.launches,
-                "dense_hit": dense_tracer.dense_hit.launches}
+    launches = {c.__name__: c.launches for c in counters}
     check_outputs(outs, P)
     check_outputs(out_s, P)
     frame_s = float(statistics.median(times[1:]))
@@ -504,13 +704,59 @@ def main(argv=None) -> int:
     }
     log("frame: " + json.dumps(frame))
     if args.profile:
-        prof = profile_frame(lambda: render_stage1(params, static, vb, cam["rays_o"],
-                                                   cam["rays_d"], generator=gen), out_dir)
+        prof = profile_run(lambda: render_stage1(params, static, vb, cam["rays_o"],
+                                                 cam["rays_d"], generator=gen),
+                           out_dir, FRAME_RANGES, "frame_profile.txt")
         log("frame profile: " + json.dumps(prof))
     if frame["uncertain_count"] != 0 or frame["small_mesh_uncertain"] != 0:
         raise AssertionError("uncertain_count != 0 at the bench budgets")
-    if launches["tile_trace"] <= 0 or launches["dense_hit"] <= 0:
+    if launches["queue_trace"] <= 0 or launches["dense_hit"] <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    del outs, out_s
+
+    # ---- 4b. the train step: counters zeroed, steps taken, counters read
+    cfg = train_config(FRAME_SPP)
+    topo = build_topology(f_big, v_big.shape[0])
+    state = train1.init_state(gen, cfg, static, params.nerf, v_big.shape[0], device=dev)
+    state = state._replace(params=state.params._replace(env=torch.as_tensor(sky_env(), device=dev)))
+    train_step = train1.make_train_step(cfg, static, vb, topo)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    step_times = []
+    for i in range(1 + TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = train_step(state, cam, generator=gen)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        log(f"train step {i} ({'warm' if i == 0 else 'timed'}): {step_times[-1]:.3f} s, "
+            f"loss {float(aux['loss']):.6f}, uncertain {float(aux['uncertain_count']):.0f}")
+        check_state(state, aux)
+    launches_train = {c.__name__: c.launches for c in counters}
+    step_s = float(statistics.median(step_times[1:]))
+    train = {
+        "config": "bench.py train step, use_restir=False, denoise_iters=0",
+        "step_s": step_s, "step_s_all": step_times,
+        "nominal_Mrays_per_s": nominal / step_s / 1e6,
+        "loss": float(aux["loss"]), "psnr": float(aux["psnr"]),
+        "psnr_brdf": float(aux["psnr_brdf"]),
+        "uncertain_count": float(aux["uncertain_count"]),
+        "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "K4_launches_per_step": launches_train["scatter_add"] / (1 + TIMED_STEPS),
+        "K1_launches_per_step": launches_train["queue_trace"] / (1 + TIMED_STEPS),
+        "launches": launches_train,
+    }
+    log("train step: " + json.dumps(train))
+    if args.profile:
+        prof_train = profile_train_phases(state, static, vb, topo, cam, cfg, gen, out_dir)
+        log("train step profile: " + json.dumps(prof_train))
+    if launches_train["scatter_add"] != K4_STEP_LAUNCHES * (1 + TIMED_STEPS) or \
+            launches_train["queue_trace"] <= 0:
+        raise AssertionError(f"train step launches: {launches_train} "
+                             f"({K4_STEP_LAUNCHES} K4 launches a step expected)")
+    del state, aux, train_step
+    torch.cuda.empty_cache()
 
     # ---- 5. reference check: card vs CPU on a small fp32 frame
     Hs = Ws = 64
@@ -529,28 +775,44 @@ def main(argv=None) -> int:
          != envlight.build_sampler(p_cpu.env).table).sum())
     log(f"env sampler table entries differing, card vs CPU: {agree['env_table_entries_differing']}")
 
+    # ---- 5b. reference check: one train step, card vs CPU
+    agree_train = check_train_reference(v_small, f_small, vs, args.seed, dev)
+
     # ---- 6. results; K1's headline is the direct-shadow batch, the shape of
     # 64 of its 69 launches a frame
+    # (launches: both main-path runs, the frames and the train steps)
     k1 = k1_checks[3]
+
+    def by_path(name):
+        return dict(launches=launches[name] + launches_train[name],
+                    launches_by_path={"frame": launches[name], "train_step": launches_train[name]})
+
     kernels = [
         dict(name="tile_trace (K1)", route="cuda",
              source="mirres_restir_nerf_mesh_torch/csrc/tile_trace.cu",
              replaces="mirres_restir_nerf_mesh_tpu/ops/tile_tracer.py:190",
-             launches=launches["tile_trace"],
+             **by_path("queue_trace"),
              max_abs_err=max(c["max_abs_err"] for c in k1_checks),
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None, checks=k1_checks),
         dict(name="dense_hit (K3)", route="cuda",
              source="mirres_restir_nerf_mesh_torch/csrc/dense_hit.cu",
              replaces="mirres_restir_nerf_mesh_tpu/ops/pallas_tracer.py:40",
-             launches=launches["dense_hit"], max_abs_err=k3["max_abs_err"],
+             **by_path("dense_hit"), max_abs_err=k3["max_abs_err"],
              ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by=k3["bound_by"], library_ms=None, checks=[k3]),
+        dict(name="scatter_add (K4)", route="cuda",
+             source="mirres_restir_nerf_mesh_torch/csrc/scatter_add.cu",
+             replaces="mirres_restir_nerf_mesh_tpu/ops/pallas_scatter.py:37",
+             **by_path("scatter_add"), max_abs_err=k4["max_abs_err"],
+             ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             bound_by=k4["bound_by"], library_ms=k4["library_ms"], checks=[k4]),
     ]
     if out_dir is not None:
         (out_dir / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": kernels, "frame": frame,
-             "reference_check": agree}, indent=1))
+             "train_step": train, "reference_check": agree,
+             "train_reference_check": agree_train}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 """Trainable environment light: lat-long texture + importance sampling
 (counterpart of mirres_restir_nerf_mesh_tpu/models/envlight.py).
 
-Ported: ``eval_le``, the quantile-table sampler ``build_sampler`` (M
+Ported: ``init_envlight``, ``eval_le``, the quantile-table sampler ``build_sampler`` (M
 entries, rebuilt every frame since the env is trainable) and the
 ``EnvSampler`` branch of ``sample_li`` / ``pdf_li``.  The exact 2-level CDF
 and alias-table variants come later.
@@ -14,7 +14,12 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..utils.math import luminance
+
+
+def init_envlight(h: int = 256, w: int = 512, bias: float = 0.5, device="cuda") -> torch.Tensor:
+    return torch.full((h, w, 3), bias, dtype=torch.float32, device=resolve_device(device))
 
 
 def ngp_dir(d: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,15 @@ The reference's dense levels (table of at least (resolution+1)^3 rows) read
 their corners through a packed-cell table whose axes run (z, y, x) while
 the cell id runs (x, y, z): corner (cx, cy, cz) there reads the table row of
 grid point (x+cz, y+cy, z+cx) and weighs it as corner (cx, cy, cz).  The
-port reproduces that pairing so the features match.  Plain PyTorch: the
-forward has no TPU kernel.
+port reproduces that pairing so the features match.
+
+Every table row an encode reads goes through one ``GatherRows`` over the
+absolute row ids of all levels ([N, 8L] exact, [N, L] stochastic): the
+forward is a plain row index (the reference's ``jnp.take``), the backward
+one scatter-add into the whole table, kernel K4 on the card
+(ops/scatter.py).  The reference splits that backward per level, and sends
+its packed dense levels through XLA's scatter, only because its MXU one-hot
+must fit VMEM; atomics have no such limit and compute the same sums.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .scatter import scatter_add
 
 PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
@@ -102,19 +110,38 @@ def level_index(pgc: torch.Tensor, dense: bool, resolution: int, size: int) -> t
     return idx % size
 
 
-def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpec,
-                    bound: float = 1.0, stochastic_u: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """Encode x in [-bound, bound]^3 -> [N, num_levels*level_dim].
+class GatherRows(torch.autograd.Function):
+    """table [R, C], idx [...] int32 absolute row ids -> table[idx] [..., C]
+    (counterpart of the reference's ``_gather_rows_multi``).  Saves only the
+    index; the backward scatter-adds the incoming gradient into a zeroed
+    [R, C] table with ``scatter_add`` (K4 on the card)."""
 
-    stochastic_u: [N, 3] uniforms for the one-corner estimator (one triple
-    per point, shared across levels); None = exact trilinear interpolation."""
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table.index_select(0, idx.reshape(-1)).reshape(*idx.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        return scatter_add(idx.reshape(-1), g.reshape(-1, g.shape[-1]), ctx.n_rows), None
+
+
+def encode_rows(x: torch.Tensor, spec: HashGridSpec, bound: float = 1.0,
+                stochastic_u: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The table rows an encode reads: (rows [N, 8L] int32 absolute row ids,
+    level-major, and the trilinear weights [N, L, 8]) on the exact path,
+    (rows [N, L], None) on the stochastic one."""
     x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
     offsets, scales, resolutions, dense = spec.level_meta()
     corners = torch.as_tensor(CORNERS, device=x.device)                 # [8,3]
     cmask = corners == 1
     corners_zyx = corners.flip(1)
-    feats = []
+    rows, weights = [], []
     for lvl in range(spec.num_levels):
         offset = int(offsets[lvl])
         size = int(offsets[lvl + 1] - offsets[lvl])
@@ -124,15 +151,28 @@ def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpe
         pgi = pg.to(torch.int64)
         if stochastic_u is not None:
             pgc = pgi + (stochastic_u < frac).to(torch.int64)
-            idx = level_index(pgc, bool(dense[lvl]), int(resolutions[lvl]), size)
-            feats.append(embeddings[offset + idx])
+            rows.append(offset + level_index(pgc, bool(dense[lvl]), int(resolutions[lvl]), size)[:, None])
             continue
         w = torch.where(cmask[None], frac[:, None, :], 1.0 - frac[:, None, :])
-        w = w[..., 0] * w[..., 1] * w[..., 2]                           # [N,8]
+        weights.append(w[..., 0] * w[..., 1] * w[..., 2])               # [N,8]
         R1 = int(resolutions[lvl]) + 1
         packed = bool(dense[lvl]) and size >= R1 * R1 * R1
         pgc = pgi[:, None, :] + (corners_zyx if packed else corners)[None]   # [N,8,3]
-        idx = level_index(pgc, bool(dense[lvl]), int(resolutions[lvl]), size)
-        vals = embeddings[offset + idx]                                 # [N,8,C]
-        feats.append(torch.sum(vals * w[..., None], dim=1))
-    return torch.cat(feats, dim=-1)
+        rows.append(offset + level_index(pgc, bool(dense[lvl]), int(resolutions[lvl]), size))
+    idx = torch.cat(rows, dim=1).to(torch.int32)
+    return idx, (torch.stack(weights, dim=1) if weights else None)
+
+
+def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpec,
+                    bound: float = 1.0, stochastic_u: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Encode x in [-bound, bound]^3 -> [N, num_levels*level_dim].
+
+    stochastic_u: [N, 3] uniforms for the one-corner estimator (one triple
+    per point, shared across levels); None = exact trilinear interpolation."""
+    N, L, C = x.shape[0], spec.num_levels, embeddings.shape[1]
+    idx, w = encode_rows(x, spec, bound, stochastic_u)
+    vals = GatherRows.apply(embeddings, idx)                            # [N,K,C]
+    if w is None:
+        return vals.reshape(N, L * C)
+    return torch.sum(vals.reshape(N, L, 8, C) * w[..., None], dim=2).reshape(N, L * C)

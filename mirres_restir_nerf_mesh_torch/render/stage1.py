@@ -66,6 +66,8 @@ class Stage1Static:
     pos_gradient_boost: float = 1.0
     compute_normal_ao: bool = False   # not ported yet
     compact_chunks: int = 4      # > 1: field and path passes run on live lanes only
+    ssaa: int = 1                # supersampling: H, W are the GT size times ssaa; the
+                                 # train step box-downsamples the image buffers
 
 
 class FrameRandoms(NamedTuple):

@@ -15,6 +15,17 @@ def luminance(rgb: torch.Tensor) -> torch.Tensor:
     return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
 
 
+def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
+    """sRGB EOTF."""
+    return torch.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:
+    x = torch.clamp(x, 0.0, 1.0)
+    return torch.where(x <= 0.0031308, 12.92 * x,
+                       1.055 * (torch.clamp_min(x, 1e-8) ** (1.0 / 2.4)) - 0.055)
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
     """Forward of the reference's trunc_exp (its clamped gradient comes with
     the training slice)."""

@@ -1,20 +1,21 @@
-"""On the card only: the CUDA kernels K1 (csrc/tile_trace.cu) and K3
-(csrc/dense_hit.cu) against their plain PyTorch versions on the same
-inputs, and the launch counters.  Skipped without a CUDA device.  On a
+"""On the card only: the CUDA kernels K1 (csrc/tile_trace.cu), K3
+(csrc/dense_hit.cu) and K4 (csrc/scatter_add.cu) against their plain
+PyTorch versions on the same inputs, and the launch counters.  Skipped without a CUDA device.  On a
 machine with the card and without JAX, run them without the suite's
 conftest (which imports JAX):
 `python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider`.
 
 Tolerances: hit prims agree on >= 99.99% of rays; t, u, v within 1e-5
 relative (kernel and plain version round the same fp32 operations in the
-same order, the kernel built with --fmad=false).
+same order, the kernel built with --fmad=false).  K4 sums with atomics in
+an arbitrary order: |kernel - plain| <= 1e-5 * sum|upd| at that row + 1e-30.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mirres_restir_nerf_mesh_torch.ops import cluster_bvh, dense_tracer, tile_tracer
+from mirres_restir_nerf_mesh_torch.ops import cluster_bvh, dense_tracer, hashgrid, scatter, tile_tracer
 
 from test_torch_helpers import bumpy_sphere, shell_rays
 
@@ -68,3 +69,34 @@ def test_tile_trace_kernel_matches_plain(dev, any_hit):
     m = (hk.hit.prim == hp.hit.prim) & (hp.hit.prim >= 0)
     for f in ("t", "u", "v"):
         torch.testing.assert_close(getattr(hk.hit, f)[m], getattr(hp.hit, f)[m], rtol=1e-5, atol=1e-6)
+
+
+def test_scatter_add_kernel_matches_plain(dev):
+    rng = np.random.RandomState(4)
+    rows, M = 70_000, 400_000
+    idx = rng.randint(0, rows, M).astype(np.int32)
+    idx[: M // 4] = rng.randint(0, 64, M // 4)          # contended rows
+    idx[rng.rand(M) < 0.05] = -1                        # padding
+    idx_d = torch.from_numpy(idx).to(dev)
+    upd = torch.from_numpy(rng.normal(size=(M, 2)).astype(np.float32)).to(dev)
+    before = scatter.scatter_add.launches
+    k = scatter.scatter_add(idx_d, upd, rows)
+    torch.cuda.synchronize()
+    assert scatter.scatter_add.launches == before + 1
+    p = scatter.scatter_add_plain(idx_d, upd, rows)
+    mag = scatter.scatter_add_plain(idx_d, upd.abs(), rows)
+    assert bool(((k - p).abs() <= 1e-5 * mag + 1e-30).all())
+
+
+def test_gather_rows_backward_launches_k4(dev):
+    spec = hashgrid.HashGridSpec(num_levels=4, base_resolution=16, log2_hashmap_size=12,
+                                 desired_resolution=128)
+    table = (torch.rand((spec.n_params, 2), device=dev) - 0.5).requires_grad_(True)
+    x = torch.rand((5000, 3), device=dev) * 1.8 - 0.9
+    before = scatter.scatter_add.launches
+    hashgrid.hashgrid_encode(table, x, spec).square().sum().backward()
+    torch.cuda.synchronize()
+    assert scatter.scatter_add.launches == before + 1
+    ref = table.detach().cpu().requires_grad_(True)
+    hashgrid.hashgrid_encode(ref, x.cpu(), spec).square().sum().backward()
+    torch.testing.assert_close(table.grad.cpu(), ref.grad, rtol=1e-4, atol=1e-6)
