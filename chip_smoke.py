@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's stage-1 forward frame and train step on
-one NVIDIA card.
+"""Drive the PyTorch + CUDA port's stage-1 forward frame and train step,
+with and without ReSTIR DI, on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
 
@@ -17,8 +17,11 @@ Phases (any failure exits non-zero):
    hit on a 1M-ray bounce-shaped batch (surface origins, cosine directions,
    "morton" sort, k_cap 640, queue_avg 64), and any hit on one spp's
    direct-light shadow batch (the covered G-buffer points towards
-   env-sampled directions, as sample_direct_mis traces them; same budget).
-   Hit prims agree on >= 99.99% of
+   env-sampled directions, as sample_direct_mis traces them; same budget),
+   and any hit on the rays of one spatial cross-visibility launch recorded
+   from a ReSTIR bench frame (the shape of 32 of its 37 launches).  K2 (the
+   tile tracer without the work budget, ``queue=False``) on the primary
+   rays and the direct-shadow batch.  Hit prims agree on >= 99.99% of
    rays, the uncertain masks are equal, and t, u, v agree within 1e-5
    relative where the prims agree.  K4 (scatter-add, the hash-grid
    backward) at one material encode's backward of the bench frame: the
@@ -33,12 +36,27 @@ Phases (any failure exits non-zero):
    warm and three times timed, and a ~6k-triangle mesh frame (dense path)
    once; the counters are read right after.  Outputs must be finite,
    uncertain_count 0, and both kernels launched.
-4b. The train step (the counters zeroed again): bench.py's train-step
-   config with use_restir=False and denoise_iters=0, on the bench frame's
-   pixels and alpha and its sky + sun env, one warm and three timed steps.
-   Loss, params and Adam moments (hence gradients) must be finite,
-   uncertain_count 0, and K4 launched 3 times a step (material, jittered
-   material and NeRF encodes).
+4b. The lighter train step (the counters zeroed again): bench.py's
+   train-step config with use_restir=False and denoise_iters=0, on the
+   bench frame's pixels and alpha and its sky + sun env, one warm and three
+   timed steps.  Loss, params and Adam moments (hence gradients) must be
+   finite, uncertain_count 0, and K4 launched 3 times a step (material,
+   jittered material and NeRF encodes).
+4c. bench.py's own frame (the counters zeroed again): use_restir=True (128
+   light tiles of 1024, 32 light + 1 BRDF candidates, 5 neighbours in a 30
+   px radius, 8192 offsets, unbiased spatial reuse with visibility
+   threading) and denoise_iters=4, one warm and three timed frames: frame
+   s, nominal Mrays/s (bench.py's count, 65,536 x (1 + 32 x 16) rays),
+   traced rays, coverage, peak memory; uncertain_count 0 and 37 K1
+   launches a frame (1 primary, 2 bounces x (closest hit + NEE with the
+   initial winners' visibility fused in), 32 spatial cross visibility).
+4d. bench.py's own train step with that static (the counters zeroed
+   again): one warm and three timed steps, loss, peak memory, K4 launched
+   3 times a step, uncertain_count 0.
+4e. The K2 path (the counters zeroed again): the public tracer entry points
+   with queue=False, intersect_tiles on the bench frame's primary rays and
+   occluded_tiles on its direct-shadow batch; their hits must equal the
+   budgeted (K1) path's, which is exact at these budgets.
 5. Reference check: a 64x64, spp-2 frame of the small mesh in fp32 on the
    card against the same frame on the CPU (the plain versions, which the
    CPU tests hold against the JAX package), same weights and randoms.
@@ -51,6 +69,13 @@ Phases (any failure exits non-zero):
    other gradients, ~2.6% of the group's L2, and Adam's first step moves
    every entry by about +-lr, so an entry whose gradient is rounding noise
    moves 2 lr apart: ~3.7% on the offsets and the material encoder.)
+5c. The same for a 64x64, spp-2, fp32 ReSTIR frame of the small mesh with
+   normal-AO, without and with the denoiser (denoise_iters 2): mask,
+   face_id and every deterministic buffer (normal_ao included) agree on
+   >= 99.9% of pixels; image_brdf, diffuse_light and specular_light frame
+   means within 1e-2 relative.  The per-pixel agreement share of each
+   Monte Carlo buffer is printed: spatial reuse and the denoiser carry a
+   sampling decision that differs on the card to neighbouring pixels.
 6. Print the kernel table as one JSON line, the card line, and as the last
    line {"ok": true, "device": {...}}.
 """
@@ -86,6 +111,13 @@ BOUNCE_RAYS = 1 << 20
 TIMED_FRAMES = 3
 TIMED_STEPS = 3
 K4_STEP_LAUNCHES = 3        # material, jittered material, NeRF encode backward
+# bench.py's ReSTIR static and its nominal rays per frame: primary, then per
+# spp initial visibility, 2 x 5 spatial cross visibility, final visibility,
+# 2 bounces x (closest hit + NEE)
+RESTIR = dict(use_restir=True, restir_tiles=128, restir_tile_size=1024, restir_light_samples=32,
+              restir_brdf_samples=1, restir_neighbors=5, restir_radius=30.0, restir_offsets=8192,
+              denoise_iters=4)
+RESTIR_RAYS_PER_SPP = 1 + 2 * 5 + 1 + 2 * 2
 
 
 def log(*a):
@@ -284,6 +316,64 @@ def check_tile(name, cm, rays_o, rays_d, any_hit, sort, k_cap, queue_avg, t_max=
                 plain_ms=plain_ms, **bound(flops, nbytes))
 
 
+def check_grid(name, cm, rays_o, rays_d, any_hit, sort, k_cap, t_max=1e10):
+    """K2 against its plain version (queue_trace_plain with the tiles'
+    counts) on one queue=False launch's prepared work."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops import tile_tracer as tt
+
+    work = tt.prepare_trace(cm, rays_o, rays_d, t_max=t_max, k_cap=k_cap, sort_octants=sort,
+                            queue=False)
+    args = (cm.geom_cm, work.rays_cm, work.cand, work.octs, work.counts, 1e-4, any_hit)
+    out_k = tt.grid_trace(*args)
+    torch.cuda.synchronize()
+    stats = {}
+    out_p = tt.queue_trace_plain(*args, stats=stats)
+    hk = tt.finish_trace(cm, work, out_k, any_hit)
+    hp = tt.finish_trace(cm, work, out_p, any_hit)
+    agree, err = hit_agreement(name, hk.hit, hp.hit, hk.uncertain, hp.uncertain)
+    ms = cuda_ms(lambda: tt.grid_trace(*args), 10)
+    plain_ms = cuda_ms(lambda: tt.queue_trace_plain(*args), 3, warm=False)
+    T, _, R = work.rays_cm.shape
+    S = cm.geom_cm.shape[2]
+    items = int(work.counts.sum())
+    flops = stats["items"] * R * SLAB_FLOPS + stats["useful_pairs"] * S * MT_FLOPS
+    nbytes = (cm.geom_cm.numel() * 4 + work.rays_cm.numel() * 4 + items * 8 + T * 4
+              + T * 5 * R * 4)
+    return dict(shape=f"{rays_o.shape[0]} rays ({int((work.t_max > 1e-4).sum())} live), "
+                      f"{T} tiles, {items} items (no budget), "
+                      f"{stats['useful_pairs']} useful (ray, cluster) pairs",
+                any_hit=any_hit, sort=str(sort), k_cap=k_cap, prim_agree=agree,
+                uncertain=int(hk.uncertain.sum()), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **bound(flops, nbytes))
+
+
+def record_occluded(run):
+    """Run run() with every Tracer.occluded batch recorded -> [(rays_o,
+    rays_d, t_max)] in launch order (copies)."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops import tile_tracer
+    from mirres_restir_nerf_mesh_torch.ops.tracer import Tracer
+
+    calls = []
+    orig = Tracer.occluded
+
+    def recording(self, rays_o, rays_d, t_max, t_min=1e-4, incoherent=False):
+        tm = tile_tracer._t_max_array(t_max, rays_o.shape[0], rays_o.device)
+        calls.append((rays_o.clone(), rays_d.clone(), tm.clone()))
+        return orig(self, rays_o, rays_d, t_max, t_min=t_min, incoherent=incoherent)
+
+    Tracer.occluded = recording
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        Tracer.occluded = orig
+    return calls
+
+
 def check_scatter(verts, tris, cm, cam, gen):
     """K4 against its plain version at one material encode's backward of
     the bench frame (the covered G-buffer points' row ids, random fp32
@@ -328,7 +418,7 @@ def frame_static(tris, H, W, spp, compute_dtype, **kw):
     return Stage1Static(
         tris=tris, nerf_spec=NeRFSpec(bound=1.0, compute_dtype=compute_dtype),
         mat_spec=MaterialSpec(bound=1.0, compute_dtype=compute_dtype),
-        spp=spp, bounces=2, use_restir=False, H=H, W=W, **kw,
+        spp=spp, bounces=2, H=H, W=W, **kw,
     )
 
 
@@ -358,13 +448,13 @@ def camera(H, W, device):
     return frame_batch(poses[0], intr, images[0], device)
 
 
-def train_config(spp: int):
-    """bench.py's train-step config (use_restir and denoise_iters come from
-    the static: off in this slice)."""
+def train_config(spp: int, use_restir: bool = False):
+    """bench.py's train-step config (the frame's ReSTIR and denoiser settings
+    come from the static)."""
     from mirres_restir_nerf_mesh_torch.config import Config, finalize
 
-    return finalize(Config(bound=1.0, stage=1, iters=7500, use_brdf=True, spp=spp, pt_bounces=2,
-                           env_h=64, env_w=128, ssaa=1, lambda_tv=0.0))
+    return finalize(Config(bound=1.0, stage=1, iters=7500, use_brdf=True, use_restir=use_restir,
+                           spp=spp, pt_bounces=2, env_h=64, env_w=128, ssaa=1, lambda_tv=0.0))
 
 
 def check_state(state, aux):
@@ -404,20 +494,22 @@ DETERMINISTIC = ("image", "weights_sum", "depth", "normal", "kd", "ks", "kd_grad
                  "normal_grad", "xyzs")
 
 
-def compare_frames(gpu, cpu, P, out_dir):
+def compare_frames(gpu, cpu, P, out_dir, label="64x64 spp 2 fp32", mc_within=0.98,
+                   npz="reference_check.npz"):
     """Card vs CPU frame: mask and face_id agree on >= 99.9% of pixels; on the
-    pixels whose face ids agree, every deterministic output within 1e-3 abs +
-    1e-3 rel on >= 99.9% of them, every Monte Carlo output on >= 98% of them
-    with its frame mean within 1% relative.  (The env sampler's CDF is a
-    cumsum that the card rounds in another order than the CPU, so a few
-    texels get one table entry more or less, which moves their pdf, and the
-    MIS weights of samples landing there, by about 1%.)  Both frames go to
-    out_dir/reference_check.npz when out_dir is given."""
+    pixels whose face ids agree, every deterministic output (normal_ao
+    included) within 1e-3 abs + 1e-3 rel on >= 99.9% of them, every Monte
+    Carlo output on >= mc_within of them (None: reported, not gated) with
+    its frame mean within 1% relative.  (The env sampler's CDF is a cumsum
+    that the card rounds in another order than the CPU, so a few texels get
+    one table entry more or less, which moves their pdf, and the MIS
+    weights of samples landing there, by about 1%.)  Both frames go to
+    out_dir/npz when out_dir is given."""
     import numpy as np
     import torch
 
     if out_dir is not None:
-        np.savez_compressed(out_dir / "reference_check.npz",
+        np.savez_compressed(out_dir / npz,
                             **{f"gpu_{k}": v.detach().cpu().numpy() for k, v in gpu.items()},
                             **{f"cpu_{k}": v.detach().numpy() for k, v in cpu.items()})
     fid = gpu["face_id"].cpu() == cpu["face_id"]
@@ -432,10 +524,11 @@ def compare_frames(gpu, cpu, P, out_dir):
         ok = float(((g - c).abs() <= 1e-3 + 1e-3 * c.abs()).all(dim=1)[fid].float().mean())
         mean_rel = float((g.mean(0) - c.mean(0)).abs().max() / c.mean(0).abs().max().clamp_min(1e-9))
         res[k] = {"within": ok, "mean_rel": mean_rel}
-        if ok < (0.999 if k in DETERMINISTIC else 0.98) or (
-                k not in DETERMINISTIC and mean_rel > 0.01):
+        det = k in DETERMINISTIC or k == "normal_ao"
+        if (det and ok < 0.999) or (not det and (mean_rel > 0.01 or (
+                mc_within is not None and ok < mc_within))):
             fails.append(k)
-    log("reference check (card vs CPU, 64x64 spp 2 fp32): " + json.dumps(res))
+    log(f"reference check (card vs CPU, {label}): " + json.dumps(res))
     if fails:
         raise AssertionError(f"reference check failed for {fails}")
     return res
@@ -443,6 +536,9 @@ def compare_frames(gpu, cpu, P, out_dir):
 
 FRAME_RANGES = ("gbuffer", "fields", "indirect", "direct", "antialias", "tile_prep",
                 "tile_kernel", "tile_finish")
+RESTIR_RANGES = ("gbuffer", "fields", "restir_initial", "indirect", "restir_temporal",
+                 "restir_spatial", "restir_final", "denoise", "antialias", "tile_prep",
+                 "tile_kernel", "tile_finish")
 
 
 def profile_run(run, out_dir, ranges, table_name):
@@ -460,7 +556,9 @@ def profile_run(run, out_dir, ranges, table_name):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ev = prof.key_averages()
-    dev_ms = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 for e in ev}
+    dev_ms = {}
+    for e in ev:    # a range can be listed twice (host op, device annotation)
+        dev_ms[e.key] = max(dev_ms.get(e.key, 0.0), getattr(e, "self_device_time_total", 0.0) / 1e3)
     # device-side work: kernels, copies and fills carry no host time; the
     # ranges' device spans (first to last kernel, gaps included) and the
     # host ops' own device totals would count the same kernels again
@@ -476,7 +574,7 @@ def profile_run(run, out_dir, ranges, table_name):
             "top_kernels_ms": [[k[:80], v] for k, v in top]}
 
 
-def profile_train_phases(state, static, verts, topo, batch, cfg, gen, out_dir):
+def profile_train_phases(state, static, verts, topo, batch, cfg, gen, out_dir, prefix="train"):
     """One train step cut into its three phases (forward: render and loss;
     backward: autograd.grad of every leaf; optimizer: the five Adam groups),
     each under its own torch.profiler (the backward's kernels launch from
@@ -502,8 +600,9 @@ def profile_train_phases(state, static, verts, topo, batch, cfg, gen, out_dir):
         grads = {g: [next(box["grads"]) for _ in groups[g]] for g in tr.GROUPS}
         tr.make_optimizer(cfg).step(state.params, grads, state.opt_state)
 
-    return {name: profile_run(fn, out_dir, FRAME_RANGES if name == "forward" else (),
-                              f"train_{name}_profile.txt")
+    ranges = RESTIR_RANGES if static.use_restir else FRAME_RANGES
+    return {name: profile_run(fn, out_dir, ranges if name == "forward" else (),
+                              f"{prefix}_{name}_profile.txt")
             for name, fn in (("forward", forward), ("backward", backward),
                              ("optimizer", optimizer))}
 
@@ -557,7 +656,7 @@ def check_train_reference(v_small, f_small, vs_dev, seed, dev):
     b_cpu = camera(Hs, Ws, "cpu")
     b_gpu = {k: x.to(dev) for k, x in b_cpu.items()}
     rnd = draw_frame_randoms(Hs * Ws, st, torch.Generator().manual_seed(seed + 2), "cpu")
-    rnd_gpu = type(rnd)(*(x.to(dev) for x in rnd))
+    rnd_gpu = rnd.to(dev)
     v_cpu = torch.as_tensor(v_small)
     loss_c, _, g_c = tr.loss_and_grads(p_cpu, st, v_cpu, topo, b_cpu, cfg, rand=rnd)
     loss_g, _, g_g = tr.loss_and_grads(s_gpu.params, st, vs_dev, topo, b_gpu, cfg, rand=rnd_gpu)
@@ -654,36 +753,85 @@ def main(argv=None) -> int:
     so, sd, st_max = shadow_rays(vb, fb, cm_big, cam, sky_env(), gen)
     k1_checks.append(check_tile("K1 any, direct shadow", cm_big, so, sd, True, "morton", 640, 64,
                                 t_max=st_max))
+    k2_checks = [check_grid("K2 closest, primary", cm_big, cam["rays_o"], d_prim, False, False,
+                            640),
+                 check_grid("K2 any, direct shadow", cm_big, so, sd, True, "morton", 640,
+                            t_max=st_max)]
+    budget = dict(k_cap=640, queue_avg=256, k_cap_incoherent=640, queue_avg_incoherent=64)
+    static = frame_static(f_big, H, W, FRAME_SPP, torch.bfloat16, **budget)
+    static_r = frame_static(f_big, H, W, FRAME_SPP, torch.bfloat16, **budget, **RESTIR)
+    params = make_params(v_big.shape[0], args.seed, dev)
+    # one ReSTIR bench frame with its shadow batches recorded: K1 on one
+    # spatial cross-visibility launch, 2 x 5 pairs per covered pixel
+    calls = record_occluded(lambda: render_stage1(params, static_r, vb, cam["rays_o"],
+                                                  cam["rays_d"], generator=gen))
+    n_cross = 2 * RESTIR["restir_neighbors"] * int(so.shape[0])
+    xo, xd, xt = next(c for c in calls if c[0].shape[0] == n_cross)
+    del calls
+    k1_checks.append(check_tile("K1 any, spatial cross visibility", cm_big, xo, xd, True, "morton",
+                                640, 64, t_max=xt))
     for c in k1_checks:
         log("K1 tile_trace: " + json.dumps(c))
-    del bo, bd, so, sd, st_max
+    for c in k2_checks:
+        log("K2 grid_trace: " + json.dumps(c))
+    del bo, bd, xo, xd, xt
     k4 = check_scatter(vb, fb, cm_big, cam, gen)
     log("K4 scatter_add: " + json.dumps(k4))
     torch.cuda.empty_cache()
 
+    counters = (tile_tracer.queue_trace, tile_tracer.grid_trace, dense_tracer.dense_hit,
+                scatter.scatter_add)
+
+    def zero_counts():
+        for c in counters:
+            c.launches = 0
+
+    def read_counts():
+        return {c.__name__: c.launches for c in counters}
+
+    def timed_frames(st, name, n_frames=TIMED_FRAMES):
+        """One warm and n_frames timed frames of bench.py's frame -> (times, last out)."""
+        times, out = [], None
+        for i in range(1 + n_frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render_stage1(params, st, vb, cam["rays_o"], cam["rays_d"], generator=gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            log(f"{name} {i} ({'warm' if i == 0 else 'timed'}): {times[-1]:.3f} s, "
+                f"uncertain {float(out['uncertain_count']):.0f}, "
+                f"traced {float(out['traced_rays']):.0f}")
+        return times, out
+
+    def timed_steps(st, cfg, name):
+        """One warm and TIMED_STEPS timed train steps from a fresh state ->
+        (times, state, aux, peak GB)."""
+        state = train1.init_state(gen, cfg, st, params.nerf, v_big.shape[0], device=dev)
+        state = state._replace(params=state.params._replace(
+            env=torch.as_tensor(sky_env(), device=dev)))
+        train_step = train1.make_train_step(cfg, st, vb, topo)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(1 + TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, aux = train_step(state, cam, generator=gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            log(f"{name} {i} ({'warm' if i == 0 else 'timed'}): {times[-1]:.3f} s, "
+                f"loss {float(aux['loss']):.6f}, uncertain {float(aux['uncertain_count']):.0f}")
+            check_state(state, aux)
+        return times, state, aux, torch.cuda.max_memory_allocated() / 1e9
+
     # ---- 4. the main path: counters zeroed, frames rendered, counters read
-    static = frame_static(f_big, H, W, FRAME_SPP, torch.bfloat16, k_cap=640, queue_avg=256,
-                          k_cap_incoherent=640, queue_avg_incoherent=64)
-    params = make_params(v_big.shape[0], args.seed, dev)
     static_s = frame_static(f_small, H, W, FRAME_SPP, torch.bfloat16)
     params_s = make_params(v_small.shape[0], args.seed, dev)
-    counters = (tile_tracer.queue_trace, dense_tracer.dense_hit, scatter.scatter_add)
-    for c in counters:
-        c.launches = 0
-    times, outs = [], None
-    for i in range(1 + TIMED_FRAMES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = render_stage1(params, static, vb, cam["rays_o"], cam["rays_d"], generator=gen)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        log(f"frame {i} ({'warm' if i == 0 else 'timed'}): {times[-1]:.3f} s, "
-            f"uncertain {float(outs['uncertain_count']):.0f}, "
-            f"traced {float(outs['traced_rays']):.0f}")
+    zero_counts()
+    times, outs = timed_frames(static, "frame")
     k1_frame = tile_tracer.queue_trace.launches
     out_s = render_stage1(params_s, static_s, vs, cam["rays_o"], cam["rays_d"], generator=gen)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
+    launches = read_counts()
     check_outputs(outs, P)
     check_outputs(out_s, P)
     frame_s = float(statistics.median(times[1:]))
@@ -714,26 +862,12 @@ def main(argv=None) -> int:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     del outs, out_s
 
-    # ---- 4b. the train step: counters zeroed, steps taken, counters read
+    # ---- 4b. the lighter train step: counters zeroed, steps taken, counters read
     cfg = train_config(FRAME_SPP)
     topo = build_topology(f_big, v_big.shape[0])
-    state = train1.init_state(gen, cfg, static, params.nerf, v_big.shape[0], device=dev)
-    state = state._replace(params=state.params._replace(env=torch.as_tensor(sky_env(), device=dev)))
-    train_step = train1.make_train_step(cfg, static, vb, topo)
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    step_times = []
-    for i in range(1 + TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, aux = train_step(state, cam, generator=gen)
-        torch.cuda.synchronize()
-        step_times.append(time.perf_counter() - t0)
-        log(f"train step {i} ({'warm' if i == 0 else 'timed'}): {step_times[-1]:.3f} s, "
-            f"loss {float(aux['loss']):.6f}, uncertain {float(aux['uncertain_count']):.0f}")
-        check_state(state, aux)
-    launches_train = {c.__name__: c.launches for c in counters}
+    zero_counts()
+    step_times, state, aux, peak = timed_steps(static, cfg, "train step")
+    launches_train = read_counts()
     step_s = float(statistics.median(step_times[1:]))
     train = {
         "config": "bench.py train step, use_restir=False, denoise_iters=0",
@@ -742,7 +876,7 @@ def main(argv=None) -> int:
         "loss": float(aux["loss"]), "psnr": float(aux["psnr"]),
         "psnr_brdf": float(aux["psnr_brdf"]),
         "uncertain_count": float(aux["uncertain_count"]),
-        "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "max_memory_allocated_GB": peak,
         "K4_launches_per_step": launches_train["scatter_add"] / (1 + TIMED_STEPS),
         "K1_launches_per_step": launches_train["queue_trace"] / (1 + TIMED_STEPS),
         "launches": launches_train,
@@ -755,8 +889,92 @@ def main(argv=None) -> int:
             launches_train["queue_trace"] <= 0:
         raise AssertionError(f"train step launches: {launches_train} "
                              f"({K4_STEP_LAUNCHES} K4 launches a step expected)")
-    del state, aux, train_step
+    del state, aux
     torch.cuda.empty_cache()
+
+    # ---- 4c. bench.py's own frame: ReSTIR + denoiser
+    nominal_r = P * (1 + FRAME_SPP * RESTIR_RAYS_PER_SPP)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times_r, out_r = timed_frames(static_r, "restir frame")
+    launches_rf = read_counts()
+    check_outputs(out_r, P)
+    frame_r_s = float(statistics.median(times_r[1:]))
+    frame_r = {
+        "config": "bench.py frame: use_restir=True, denoise_iters=4",
+        "frame_s": frame_r_s, "frame_s_all": times_r,
+        "nominal_rays_per_frame": nominal_r,
+        "nominal_Mrays_per_s": nominal_r / frame_r_s / 1e6,
+        "traced_rays_per_frame": float(out_r["traced_rays"]),
+        "coverage": float(out_r["mask"].float().mean()),
+        "uncertain_count": float(out_r["uncertain_count"]),
+        "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "K1_launches_per_frame": launches_rf["queue_trace"] / (1 + TIMED_FRAMES),
+        "launches": launches_rf,
+    }
+    log("restir frame: " + json.dumps(frame_r))
+    if args.profile:
+        prof_r = profile_run(lambda: render_stage1(params, static_r, vb, cam["rays_o"],
+                                                   cam["rays_d"], generator=gen),
+                             out_dir, RESTIR_RANGES, "restir_frame_profile.txt")
+        log("restir frame profile: " + json.dumps(prof_r))
+    if frame_r["uncertain_count"] != 0:
+        raise AssertionError("restir frame: uncertain_count != 0 at the bench budgets")
+    k1_expected = 1 + 2 * 2 + FRAME_SPP     # primary, bounces (NEE fused), spatial per spp
+    if frame_r["K1_launches_per_frame"] != k1_expected:
+        raise AssertionError(f"restir frame: {frame_r['K1_launches_per_frame']} K1 launches a "
+                             f"frame, {k1_expected} expected")
+    del out_r
+    torch.cuda.empty_cache()
+
+    # ---- 4d. bench.py's own train step
+    cfg_r = train_config(FRAME_SPP, use_restir=True)
+    zero_counts()
+    step_times_r, state, aux, peak_r = timed_steps(static_r, cfg_r, "restir train step")
+    launches_rt = read_counts()
+    step_r_s = float(statistics.median(step_times_r[1:]))
+    train_r = {
+        "config": "bench.py train step: use_restir=True, denoise_iters=4",
+        "step_s": step_r_s, "step_s_all": step_times_r,
+        "nominal_Mrays_per_s": nominal_r / step_r_s / 1e6,
+        "loss": float(aux["loss"]), "psnr": float(aux["psnr"]),
+        "psnr_brdf": float(aux["psnr_brdf"]),
+        "uncertain_count": float(aux["uncertain_count"]),
+        "max_memory_allocated_GB": peak_r,
+        "K4_launches_per_step": launches_rt["scatter_add"] / (1 + TIMED_STEPS),
+        "K1_launches_per_step": launches_rt["queue_trace"] / (1 + TIMED_STEPS),
+        "launches": launches_rt,
+    }
+    log("restir train step: " + json.dumps(train_r))
+    if args.profile:
+        prof_rt = profile_train_phases(state, static_r, vb, topo, cam, cfg_r, gen, out_dir,
+                                       prefix="restir_train")
+        log("restir train step profile: " + json.dumps(prof_rt))
+    if launches_rt["scatter_add"] != K4_STEP_LAUNCHES * (1 + TIMED_STEPS):
+        raise AssertionError(f"restir train step launches: {launches_rt} "
+                             f"({K4_STEP_LAUNCHES} K4 launches a step expected)")
+    del state, aux
+    torch.cuda.empty_cache()
+
+    # ---- 4e. the K2 path: the public tracer entry points with queue=False
+    zero_counts()
+    grid_hit = tile_tracer.intersect_tiles(cm_big, cam["rays_o"], d_prim, k_cap=640, queue=False)
+    grid_occ = tile_tracer.occluded_tiles(cm_big, so, sd, st_max, k_cap=640,
+                                          sort_octants="morton", queue=False)
+    torch.cuda.synchronize()
+    launches_grid = read_counts()
+    queue_hit = tile_tracer.intersect_tiles(cm_big, cam["rays_o"], d_prim, k_cap=640,
+                                            queue_avg=256)
+    queue_occ = tile_tracer.occluded_tiles(cm_big, so, sd, st_max, k_cap=640,
+                                           sort_octants="morton", queue_avg=64)
+    grid_path = {"launches": launches_grid,
+                 "primary_prims_equal": float((grid_hit.prim == queue_hit.prim).float().mean()),
+                 "shadow_occluded_equal": float((grid_occ == queue_occ).float().mean())}
+    log("K2 path (queue=False entry points): " + json.dumps(grid_path))
+    if launches_grid["grid_trace"] != 2 or grid_path["primary_prims_equal"] != 1.0 or \
+            grid_path["shadow_occluded_equal"] != 1.0:
+        raise AssertionError(f"K2 path: {grid_path}")
+    del so, sd, st_max
 
     # ---- 5. reference check: card vs CPU on a small fp32 frame
     Hs = Ws = 64
@@ -768,7 +986,7 @@ def main(argv=None) -> int:
     ref = render_stage1(p_cpu, st, torch.as_tensor(v_small), cam_s["rays_o"], cam_s["rays_d"],
                         rand=rnd)
     got = render_stage1(p_gpu, st, vs, cam_s["rays_o"].to(dev), cam_s["rays_d"].to(dev),
-                        rand=type(rnd)(*(x.to(dev) for x in rnd)))
+                        rand=rnd.to(dev))
     agree = compare_frames(got, ref, Hs * Ws, out_dir)
     agree["env_table_entries_differing"] = int(
         (envlight.build_sampler(p_gpu.env).table.cpu()
@@ -778,14 +996,31 @@ def main(argv=None) -> int:
     # ---- 5b. reference check: one train step, card vs CPU
     agree_train = check_train_reference(v_small, f_small, vs, args.seed, dev)
 
-    # ---- 6. results; K1's headline is the direct-shadow batch, the shape of
-    # 64 of its 69 launches a frame
-    # (launches: both main-path runs, the frames and the train steps)
-    k1 = k1_checks[3]
+    # ---- 5c. reference check: a ReSTIR frame, without and with the denoiser
+    agree_restir = {}
+    for iters in (0, 2):
+        st_r = frame_static(f_small, Hs, Ws, 2, torch.float32, compute_normal_ao=True,
+                            **{**RESTIR, "denoise_iters": iters})
+        rnd = draw_frame_randoms(Hs * Ws, st_r, torch.Generator().manual_seed(args.seed + 3),
+                                 "cpu")
+        ref = render_stage1(p_cpu, st_r, torch.as_tensor(v_small), cam_s["rays_o"],
+                            cam_s["rays_d"], rand=rnd)
+        got = render_stage1(p_gpu, st_r, vs, cam_s["rays_o"].to(dev), cam_s["rays_d"].to(dev),
+                            rand=rnd.to(dev))
+        agree_restir[f"denoise_iters={iters}"] = compare_frames(
+            got, ref, Hs * Ws, out_dir, label=f"ReSTIR 64x64 spp 2 fp32, denoise_iters {iters}",
+            mc_within=None, npz=f"restir_reference_check_{iters}.npz")
+
+    # ---- 6. results.  K1's headline is the direct-shadow batch, the shape of
+    # 64 of the 69 launches of the lighter frame (the spatial cross-visibility
+    # check is 32 of the ReSTIR frame's 37); K2's is the primary rays.
+    k1, k2 = k1_checks[3], k2_checks[0]
+    paths = {"frame": launches, "train_step": launches_train, "restir_frame": launches_rf,
+             "restir_train_step": launches_rt, "grid_trace_path": launches_grid}
 
     def by_path(name):
-        return dict(launches=launches[name] + launches_train[name],
-                    launches_by_path={"frame": launches[name], "train_step": launches_train[name]})
+        return dict(launches=sum(p[name] for p in paths.values()),
+                    launches_by_path={k: p[name] for k, p in paths.items()})
 
     kernels = [
         dict(name="tile_trace (K1)", route="cuda",
@@ -795,6 +1030,13 @@ def main(argv=None) -> int:
              max_abs_err=max(c["max_abs_err"] for c in k1_checks),
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None, checks=k1_checks),
+        dict(name="grid_trace (K2)", route="cuda",
+             source="mirres_restir_nerf_mesh_torch/csrc/tile_trace.cu",
+             replaces="mirres_restir_nerf_mesh_tpu/ops/tile_tracer.py:62",
+             **by_path("grid_trace"),
+             max_abs_err=max(c["max_abs_err"] for c in k2_checks),
+             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             bound_by=k2["bound_by"], library_ms=None, checks=k2_checks),
         dict(name="dense_hit (K3)", route="cuda",
              source="mirres_restir_nerf_mesh_torch/csrc/dense_hit.cu",
              replaces="mirres_restir_nerf_mesh_tpu/ops/pallas_tracer.py:40",
@@ -811,8 +1053,10 @@ def main(argv=None) -> int:
     if out_dir is not None:
         (out_dir / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": kernels, "frame": frame,
-             "train_step": train, "reference_check": agree,
-             "train_reference_check": agree_train}, indent=1))
+             "train_step": train, "restir_frame": frame_r, "restir_train_step": train_r,
+             "grid_trace_path": grid_path, "reference_check": agree,
+             "train_reference_check": agree_train, "restir_reference_check": agree_restir},
+            indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

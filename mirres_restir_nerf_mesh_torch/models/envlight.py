@@ -1,10 +1,11 @@
 """Trainable environment light: lat-long texture + importance sampling
 (counterpart of mirres_restir_nerf_mesh_tpu/models/envlight.py).
 
-Ported: ``init_envlight``, ``eval_le``, the quantile-table sampler ``build_sampler`` (M
-entries, rebuilt every frame since the env is trainable) and the
-``EnvSampler`` branch of ``sample_li`` / ``pdf_li``.  The exact 2-level CDF
-and alias-table variants come later.
+Ported: ``init_envlight``, ``eval_le``, ``eval_le_nearest``, the
+quantile-table sampler ``build_sampler`` (M entries, rebuilt every frame
+since the env is trainable) and the ``EnvSampler`` branch of ``sample_li``
+(with its nearest-texel record draw for the ReSTIR light tiles) /
+``pdf_li``.  The exact 2-level CDF and alias-table variants come later.
 """
 
 from __future__ import annotations
@@ -72,6 +73,20 @@ def eval_le(tex: torch.Tensor, dir_world: torch.Tensor) -> torch.Tensor:
     return torch.where(sin_theta[..., None] < 1e-4, 0.0, le)
 
 
+def eval_le_nearest(tex: torch.Tensor, dir_world: torch.Tensor) -> torch.Tensor:
+    """Nearest-texel radiance, for resampling target functions only (RIS is
+    unbiased for any target evaluated consistently); radiance that reaches
+    the image keeps the bilinear ``eval_le``."""
+    H, W = tex.shape[0], tex.shape[1]
+    d = ngp_dir(dir_world)
+    uv = dir_to_uv(d)
+    x = torch.remainder((uv[..., 0] * W).to(torch.int32), W).long()
+    y = torch.clamp(((1.0 - uv[..., 1]) * H).to(torch.int32), 0, H - 1).long()
+    le = tex.reshape(H * W, -1)[y * W + x]
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - d[..., 1] ** 2, 0.0))
+    return torch.where(sin_theta[..., None] < 1e-4, 0.0, le)
+
+
 class EnvSampler(NamedTuple):
     """O(1) importance sampler: table[k] = texel at CDF quantile (k+0.5)/M;
     pdf = count_in_table / M per texel over the texel solid angle (0 where
@@ -97,10 +112,14 @@ def build_sampler(tex: torch.Tensor, m: int = 65536) -> EnvSampler:
     return EnvSampler(table=table, pdf=pdf)
 
 
-def sample_li(tex: torch.Tensor, dist: EnvSampler, rnd: torch.Tensor
+def sample_li(tex: torch.Tensor, dist: EnvSampler, rnd: torch.Tensor, nearest_le: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Importance-sample the environment; rnd [..., 2] in [0, 1) ->
-    (dir_world [..., 3], Le [..., 3], pdf_solid_angle [...])."""
+    (dir_world [..., 3], Le [..., 3], pdf_solid_angle [...]).
+
+    nearest_le: Le is the sampled texel's own value, zeroed in the pole cone
+    as ``eval_le_nearest`` zeroes it (the light tiles' convention: their Le
+    only enters resampling targets); else the bilinear lookup."""
     if not isinstance(dist, EnvSampler):
         raise TypeError("only the EnvSampler branch of sample_li is ported")
     H, W = tex.shape[0], tex.shape[1]
@@ -116,7 +135,13 @@ def sample_li(tex: torch.Tensor, dist: EnvSampler, rnd: torch.Tensor
     uv = torch.stack([u, 1.0 - v_tex], dim=-1)
     d_remap = uv_to_dir(uv)
     dir_world = torch.stack([-d_remap[..., 0], d_remap[..., 2], d_remap[..., 1]], dim=-1)
-    return dir_world, _bilinear(tex, uv), dist.pdf[row, col]
+    if nearest_le:
+        le = tex.reshape(H * W, -1)[texel]
+        sin_theta = torch.sqrt(torch.clamp_min(1.0 - d_remap[..., 1] ** 2, 0.0))
+        le = torch.where(sin_theta[..., None] < 1e-4, 0.0, le)
+    else:
+        le = _bilinear(tex, uv)
+    return dir_world, le, dist.pdf[row, col]
 
 
 def pdf_li(dist: EnvSampler, dir_world: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,11 @@ whose answer lies beyond it is reported ``uncertain``.  The kernel
 reference exactly: stable sorts stand in for ``lax.top_k`` and
 ``lax.sort_key_val`` (lower index first on ties).
 
-The dense grid variant of the reference (``queue=False``, its ``_kernel``)
-has no caller and is not ported.
+``queue=False`` is the reference's dense (tile, k_cap) grid, its K2
+``_kernel``: no work budget, so ``dropped`` comes from the k_cap cut alone,
+and each tile walks its first ``counts`` candidates (kernel K2 of the same
+source, wrapper ``grid_trace``).  The reference splits that grid into tile
+chunks only to fit its scalar tables into the TPU's SMEM; one launch here.
 """
 
 from __future__ import annotations
@@ -301,12 +304,42 @@ def queue_trace_plain(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_
     return out
 
 
-def _bind(lib):
-    fn = lib.tile_trace_launch
+def _bind(lib, name: str = "tile_trace_launch"):
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_float, ctypes.c_int, _VP]
     return fn
+
+
+def _launch(entry: str, geom_cm, rays_cm, cand, octs, n_run, t_min: float,
+            any_hit: bool) -> Optional[torch.Tensor]:
+    """Check the card's inputs and launch one entry of csrc/tile_trace.cu
+    -> out [T,5,R], or None for an empty launch (nothing to run)."""
+    from ..cuda_build import check, load, stream_ptr
+
+    what = entry.replace("_launch", "")
+    dev = geom_cm.device
+    cand = cand.to(torch.int32).contiguous()
+    octs = octs.to(torch.int32).contiguous()
+    n_run = n_run.to(torch.int32).contiguous()
+    for name, x, dt in (("geom_cm", geom_cm, torch.float32), ("rays_cm", rays_cm, torch.float32)):
+        if x.device != dev or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} tensor on {dev}")
+    T_, rows, R = rays_cm.shape
+    C, grows, S = geom_cm.shape
+    if rows != 8 or grows != 16 or R > 1024 or cand.shape != octs.shape or cand.shape[0] != T_:
+        raise ValueError(f"{what}: expects rays [T,8,R<=1024], geom [C,16,S], cand/octs [T,K]")
+    if cand.device != dev or n_run.device != dev:
+        raise ValueError(f"{what}: candidate tables must lie on the card")
+    out = torch.empty((T_, 5, R), dtype=torch.float32, device=dev)
+    if not T_:
+        return out
+    fn = _bind(load("tile_trace"), entry)
+    check(fn(geom_cm.data_ptr(), rays_cm.data_ptr(), cand.data_ptr(), octs.data_ptr(),
+             n_run.data_ptr(), out.data_ptr(), T_, cand.shape[1], S, R, t_min, int(any_hit),
+             stream_ptr(dev)), what)
+    return out
 
 
 def queue_trace(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_hit: bool):
@@ -314,32 +347,28 @@ def queue_trace(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_hit: b
     the card, queue_trace_plain for tensors on the CPU -> out [T,5,R]."""
     if not geom_cm.is_cuda:
         return queue_trace_plain(geom_cm, rays_cm, cand, octs, n_active, t_min, any_hit)
-    from ..cuda_build import check, load, stream_ptr
-
-    dev = geom_cm.device
-    cand = cand.to(torch.int32).contiguous()
-    octs = octs.to(torch.int32).contiguous()
-    n_active = n_active.to(torch.int32).contiguous()
-    for name, x, dt in (("geom_cm", geom_cm, torch.float32), ("rays_cm", rays_cm, torch.float32)):
-        if x.device != dev or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(f"queue_trace: {name} must be a contiguous {dt} tensor on {dev}")
-    T_, rows, R = rays_cm.shape
-    C, grows, S = geom_cm.shape
-    if rows != 8 or grows != 16 or R > 1024 or cand.shape != octs.shape or cand.shape[0] != T_:
-        raise ValueError("queue_trace: expects rays [T,8,R<=1024], geom [C,16,S], cand/octs [T,K]")
-    if cand.device != dev or n_active.device != dev:
-        raise ValueError("queue_trace: candidate tables must lie on the card")
-    out = torch.empty((T_, 5, R), dtype=torch.float32, device=dev)
-    if T_:
-        launch = _bind(load("tile_trace"))
-        check(launch(geom_cm.data_ptr(), rays_cm.data_ptr(), cand.data_ptr(), octs.data_ptr(),
-                     n_active.data_ptr(), out.data_ptr(), T_, cand.shape[1], S, R, t_min,
-                     int(any_hit), stream_ptr(dev)), "tile_trace")
+    out = _launch("tile_trace_launch", geom_cm, rays_cm, cand, octs, n_active, t_min, any_hit)
+    if rays_cm.shape[0]:
         queue_trace.launches += 1
     return out
 
 
 queue_trace.launches = 0
+
+
+def grid_trace(geom_cm, rays_cm, cand, octs, counts, t_min: float, any_hit: bool):
+    """Run each tile's first counts candidates, no work budget: the K2
+    kernel for tensors on the card, queue_trace_plain (called with counts)
+    for tensors on the CPU -> out [T,5,R]."""
+    if not geom_cm.is_cuda:
+        return queue_trace_plain(geom_cm, rays_cm, cand, octs, counts, t_min, any_hit)
+    out = _launch("grid_trace_launch", geom_cm, rays_cm, cand, octs, counts, t_min, any_hit)
+    if rays_cm.shape[0]:
+        grid_trace.launches += 1
+    return out
+
+
+grid_trace.launches = 0
 
 
 class TileTraceOut(NamedTuple):
@@ -353,7 +382,7 @@ class TraceWork(NamedTuple):
     cand: torch.Tensor                # [T,K]
     octs: torch.Tensor                # [T,K]
     counts: torch.Tensor              # [T] candidates found
-    n_active: torch.Tensor            # [T] candidates run after the budget
+    n_active: torch.Tensor            # [T] candidates to run (= counts without the budget)
     dropped: torch.Tensor             # [T] exactness bound after the budget
     t_max: torch.Tensor               # [N] in sorted order
     inv_perm: Optional[torch.Tensor]  # [N] undoes the sort (None = unsorted)
@@ -393,8 +422,10 @@ def _sort_keys(cm: ClusterMesh, rays_o, rays_d, t_max_arr, sort_octants, sort_bl
 
 def prepare_trace(cm: ClusterMesh, rays_o, rays_d, t_min: float = 1e-4, t_max=1e10,
                   k_cap: int = 128, tile: int = R_TILE, sort_octants=False,
-                  sort_block: int = 4096, queue_avg: int = 64) -> TraceWork:
-    """Sort, tile, select candidates and apply the work budget."""
+                  sort_block: int = 4096, queue: bool = True,
+                  queue_avg: int = 64) -> TraceWork:
+    """Sort, tile, select candidates and, with ``queue``, apply the work
+    budget (without it every tile runs all its candidates)."""
     N = rays_o.shape[0]
     R = tile
     dev = rays_o.device
@@ -418,7 +449,10 @@ def prepare_trace(cm: ClusterMesh, rays_o, rays_d, t_min: float = 1e-4, t_max=1e
     rot, rdt, tmt = ro.reshape(n_tiles, R, 3), rd.reshape(n_tiles, R, 3), tm.reshape(n_tiles, R)
 
     cand, octs, counts, dropped, entries = _octant_candidates_blocked(cm, rot, rdt, tmt, t_min, k_cap)
-    n_active, dropped = _queue_budget(counts, dropped, entries, queue_avg)
+    if queue:
+        n_active, dropped = _queue_budget(counts, dropped, entries, queue_avg)
+    else:
+        n_active = counts
 
     rays_cm = torch.zeros((n_tiles, 8, R), dtype=torch.float32, device=dev)
     rays_cm[:, 0:3] = rot.transpose(1, 2)
@@ -467,17 +501,20 @@ def finish_trace(cm: ClusterMesh, work: TraceWork, out: torch.Tensor, any_hit: b
 
 def tile_trace(cm: ClusterMesh, rays_o, rays_d, t_min: float = 1e-4, t_max=1e10,
                any_hit: bool = False, k_cap: int = 128, tile: int = R_TILE,
-               sort_octants=False, sort_block: int = 4096, queue_avg: int = 64) -> TileTraceOut:
+               sort_octants=False, sort_block: int = 4096, queue: bool = True,
+               queue_avg: int = 64) -> TileTraceOut:
     """Trace via tile-coherent candidate streaming (S % 128 == 0 as in the
     reference's dispatch).  sort_octants: False, True/"block", "dir",
-    "morton" or "morton_dir2" ray reorders; results come back unpermuted."""
+    "morton" or "morton_dir2" ray reorders; results come back unpermuted.
+    queue: the work budget of queue_avg candidates per tile on average and
+    K1; queue=False runs every tile's k_cap-cut candidates through K2."""
     with record_function("tile_prep"):
         work = prepare_trace(cm, rays_o, rays_d, t_min=t_min, t_max=t_max, k_cap=k_cap,
                              tile=tile, sort_octants=sort_octants, sort_block=sort_block,
-                             queue_avg=queue_avg)
+                             queue=queue, queue_avg=queue_avg)
     with record_function("tile_kernel"):
-        out = queue_trace(cm.geom_cm, work.rays_cm, work.cand, work.octs, work.n_active, t_min,
-                          any_hit)
+        run = queue_trace if queue else grid_trace
+        out = run(cm.geom_cm, work.rays_cm, work.cand, work.octs, work.n_active, t_min, any_hit)
     with record_function("tile_finish"):
         return finish_trace(cm, work, out, any_hit)
 
@@ -493,7 +530,7 @@ def _empty_trace(N: int, device) -> TileTraceOut:
 
 def intersect_tiles_t(cm: ClusterMesh, rays_o, rays_d, t_min: float = 1e-4, t_max=1e10,
                       any_hit: bool = False, k_cap: int = 128, tile: int = R_TILE,
-                      dense_threshold: int = 8192, sort_octants=False,
+                      dense_threshold: int = 8192, sort_octants=False, queue: bool = True,
                       queue_avg: int = 64) -> TileTraceOut:
     """Dense pass for small meshes (exact -> uncertain all False), tile trace
     otherwise."""
@@ -508,13 +545,33 @@ def intersect_tiles_t(cm: ClusterMesh, rays_o, rays_d, t_min: float = 1e-4, t_ma
         return TileTraceOut(hit=hit, uncertain=torch.zeros((N,), dtype=torch.bool,
                                                            device=rays_o.device))
     return tile_trace(cm, rays_o, rays_d, t_min=t_min, t_max=t_max, any_hit=any_hit,
-                      k_cap=k_cap, tile=tile, sort_octants=sort_octants, queue_avg=queue_avg)
+                      k_cap=k_cap, tile=tile, sort_octants=sort_octants, queue=queue,
+                      queue_avg=queue_avg)
+
+
+def intersect_tiles(cm: ClusterMesh, rays_o, rays_d, t_min: float = 1e-4, t_max=1e10,
+                    any_hit: bool = False, k_cap: int = 128, tile: int = R_TILE,
+                    dense_threshold: int = 8192, sort_octants=False, queue: bool = True,
+                    queue_avg: int = 64) -> HitResult:
+    """HitResult-contract wrapper of intersect_tiles_t."""
+    return intersect_tiles_t(cm, rays_o, rays_d, t_min=t_min, t_max=t_max, any_hit=any_hit,
+                             k_cap=k_cap, tile=tile, dense_threshold=dense_threshold,
+                             sort_octants=sort_octants, queue=queue, queue_avg=queue_avg).hit
 
 
 def occluded_tiles_t(cm: ClusterMesh, rays_o, rays_d, t_max, t_min: float = 1e-4,
                      k_cap: int = 128, tile: int = R_TILE, dense_threshold: int = 8192,
-                     sort_octants=False, queue_avg: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+                     sort_octants=False, queue: bool = True,
+                     queue_avg: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
     res = intersect_tiles_t(cm, rays_o, rays_d, t_min=t_min, t_max=t_max, any_hit=True,
                             k_cap=k_cap, tile=tile, dense_threshold=dense_threshold,
-                            sort_octants=sort_octants, queue_avg=queue_avg)
+                            sort_octants=sort_octants, queue=queue, queue_avg=queue_avg)
     return res.hit.prim >= 0, res.uncertain
+
+
+def occluded_tiles(cm: ClusterMesh, rays_o, rays_d, t_max, t_min: float = 1e-4,
+                   k_cap: int = 128, tile: int = R_TILE, dense_threshold: int = 8192,
+                   sort_octants=False, queue: bool = True, queue_avg: int = 64) -> torch.Tensor:
+    return occluded_tiles_t(cm, rays_o, rays_d, t_max, t_min=t_min, k_cap=k_cap, tile=tile,
+                            dense_threshold=dense_threshold, sort_octants=sort_octants,
+                            queue=queue, queue_avg=queue_avg)[0]

@@ -135,11 +135,13 @@ def face_corners(verts: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:
 
 
 def trace_bounce(state: BounceState, tracer: Tracer, vface_tab: torch.Tensor, material_fn,
-                 env_tex, env_dist, u: torch.Tensor):
+                 env_tex, env_dist, u: torch.Tensor, extra_occ=None):
     """One indirect bounce: trace, NEE at the hit with MIS, escape adds env Le.
     vface_tab: face_corners(verts, tris); u [N, 10] (see the module
     docstring).  Returns (escape contribution, NEE contribution, next state,
-    hit positions)."""
+    hit positions).  extra_occ: optional (origins, dirs, t_max) occlusion
+    rays traced in the same launch as the NEE shadow rays, ahead of them;
+    their visibility is then a fifth output."""
     hit = tracer.intersect(state.origin, state.direction,
                            t_max=torch.where(state.alive, 1e10, 0.0), incoherent=True)
     hit_mask = (hit.prim >= 0) & state.alive
@@ -168,7 +170,16 @@ def trace_bounce(state: BounceState, tracer: Tracer, vface_tab: torch.Tensor, ma
     bpdf = brdf.brdf_pdf(w_view, w_l, alpha, p_diff, p_spec)
     mis = lpdf / torch.clamp_min(lpdf + bpdf, 1e-12)
     nee_ok = hit_mask & (lpdf > 1e-12) & (w_l[:, 2] > 1e-6)
-    vis = ~tracer.occluded(pos + nrm * 1e-4, ldir, torch.where(nee_ok, 1e9, 0.0), incoherent=True)
+    nee_o, nee_tm = pos + nrm * 1e-4, torch.where(nee_ok, 1e9, 0.0)
+    extra_vis = None
+    if extra_occ is not None:
+        eo, ed, etm = extra_occ
+        ne = eo.shape[0]
+        occ = tracer.occluded(torch.cat([eo, nee_o]), torch.cat([ed, ldir]),
+                              torch.cat([etm, nee_tm]), incoherent=True)
+        extra_vis, vis = ~occ[:ne], ~occ[ne:]
+    else:
+        vis = ~tracer.occluded(nee_o, ldir, nee_tm, incoherent=True)
     nee = state.throughput * f * le * (mis * vis / torch.clamp_min(lpdf, 1e-12))[:, None]
     nee_contrib = torch.where(nee_ok[:, None], nee, 0.0)
 
@@ -183,15 +194,19 @@ def trace_bounce(state: BounceState, tracer: Tracer, vface_tab: torch.Tensor, ma
         throughput=torch.where(alive[:, None], state.throughput * s.weight * mis_next[:, None], 0.0),
         alive=alive, specular=s.specular_bounce,
     )
+    if extra_occ is not None:
+        return escape_contrib.detach(), nee_contrib.detach(), next_state, pos, extra_vis
     return escape_contrib.detach(), nee_contrib.detach(), next_state, pos
 
 
 def render_indirect(gb_mask, position, normal, view_dir, kd, roughness, metallic,
                     tracer: Tracer, verts, tris, material_fn, env_tex, env_dist,
                     bounces: int = 2, u: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None, extra_occ=None):
     """Total indirect radiance at the primary hits, no gradients;
-    u [N, 5 + 10*bounces] or drawn from ``generator``."""
+    u [N, 5 + 10*bounces] or drawn from ``generator``.  extra_occ: optional
+    (origins, dirs, t_max) occlusion batch fused into the first bounce's
+    NEE launch; then returns (total, extra_occluded) instead of total."""
     N = position.shape[0]
     if u is None:
         u = torch.rand((N, indirect_u_width(bounces)), generator=generator, device=position.device)
@@ -201,12 +216,20 @@ def render_indirect(gb_mask, position, normal, view_dir, kd, roughness, metallic
         total = torch.zeros_like(position)
         env_tex = env_tex.detach()
         vface_tab = face_corners(verts.detach(), tris)
+        extra_occluded = None
+        if extra_occ is not None and bounces == 0:
+            extra_occluded = tracer.occluded(*extra_occ, incoherent=True)
         for b in range(bounces):
             c0 = SPAWN_U + BOUNCE_U * b
-            escape_c, nee_c, state, _ = trace_bounce(state, tracer, vface_tab, material_fn,
-                                                     env_tex, env_dist, u[:, c0:c0 + BOUNCE_U])
+            out = trace_bounce(state, tracer, vface_tab, material_fn, env_tex, env_dist,
+                               u[:, c0:c0 + BOUNCE_U], extra_occ=extra_occ if b == 0 else None)
+            escape_c, nee_c, state = out[0], out[1], out[2]
+            if b == 0 and extra_occ is not None:
+                extra_occluded = ~out[4]
             # segment-0 escapes are direct light, covered by the direct estimator
             if b > 0:
                 total = total + escape_c
             total = total + nee_c
+    if extra_occ is not None:
+        return total, extra_occluded
     return total

@@ -18,7 +18,8 @@
   is functional: a step returns new tensors and leaves its input state as
   it was.  The envmap is clamped to >= 0.01 after each update.
 - Loss: NeRF-rgb MSE + BRDF L1 + mask + monochrome shading + material
-  smoothness (+ chroma) + Laplacian / normal-consistency / edge / offsets
+  smoothness (+ AO-weighted albedo smoothness, + chroma) + Laplacian /
+  normal-consistency / edge / offsets
   regularizers; per-face error sums for the refine hook.
 
 Optimizer state layout: ``{group: AdamState(count, mu, nu)}`` where mu and
@@ -207,8 +208,10 @@ def stage1_loss(params: Stage1Params, static: Stage1Static, base_verts: torch.Te
         loss = loss + L.material_smoothness_grad(out["kd_grad"], out["ks_grad"],
                                                  out["normal_grad"], cfg.lambda_kd,
                                                  cfg.lambda_ks, cfg.lambda_nrm)
-        # (the AO-weighted albedo term needs normal_ao, which comes with the
-        # denoiser slice; render_stage1 raises for compute_normal_ao)
+        if cfg.lambda_extra_kd > 0 and "normal_ao" in out:
+            # AO-weighted albedo smoothness
+            kd_luma = torch.mean(out["kd_grad"], dim=-1)
+            loss = loss + cfg.lambda_extra_kd * torch.mean(kd_luma * out["normal_ao"])
         if cfg.lambda_chroma > 0:
             loss = loss + L.chroma_loss(out["kd"], gt, cfg.lambda_chroma)
 

@@ -5,7 +5,8 @@ The reference sorts live lanes first and runs fixed chunks under lax.cond
 because XLA needs static shapes.  Eager PyTorch takes the live lanes by
 boolean index and runs the payload once on them; dead lanes get the same
 constant fills.  Randoms ride as ordinary row-wise args, so the compacted
-call equals the full-width call on live lanes.
+call equals the full-width call on live lanes.  ``apply_in_chunks`` bounds
+the temporaries of a wide rowwise payload.
 """
 
 from __future__ import annotations
@@ -31,3 +32,13 @@ def masked_apply(fn: Callable, mask: torch.Tensor, args: Sequence[torch.Tensor],
         full = torch.full((P,) + tuple(o.shape[1:]), f, dtype=o.dtype, device=o.device)
         res.append(full.index_put((live,), o))
     return res[0] if single else tuple(res)
+
+
+def apply_in_chunks(fn: Callable, args: Sequence[torch.Tensor], rows: int):
+    """Rowwise ``fn(*args) -> (out1, ...)`` over chunks of at most ``rows``
+    rows, outputs concatenated: the same result with bounded temporaries."""
+    N = args[0].shape[0]
+    if N <= rows:
+        return fn(*args)
+    parts = [fn(*(a[i:i + rows] for a in args)) for i in range(0, N, rows)]
+    return tuple(torch.cat(p, dim=0) for p in zip(*parts))

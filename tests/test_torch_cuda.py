@@ -1,4 +1,4 @@
-"""On the card only: the CUDA kernels K1 (csrc/tile_trace.cu), K3
+"""On the card only: the CUDA kernels K1 and K2 (csrc/tile_trace.cu), K3
 (csrc/dense_hit.cu) and K4 (csrc/scatter_add.cu) against their plain
 PyTorch versions on the same inputs, and the launch counters.  Skipped without a CUDA device.  On a
 machine with the card and without JAX, run them without the suite's
@@ -62,6 +62,31 @@ def test_tile_trace_kernel_matches_plain(dev, any_hit):
     assert tile_tracer.queue_trace.launches == before + 1
     out_p = tile_tracer.queue_trace_plain(cm.geom_cm, work.rays_cm, work.cand, work.octs,
                                           work.n_active, 1e-4, any_hit)
+    hk = tile_tracer.finish_trace(cm, work, out_k, any_hit)
+    hp = tile_tracer.finish_trace(cm, work, out_p, any_hit)
+    assert torch.equal(hk.uncertain, hp.uncertain)
+    assert (hk.hit.prim == hp.hit.prim).float().mean().item() >= 0.9999
+    m = (hk.hit.prim == hp.hit.prim) & (hp.hit.prim >= 0)
+    for f in ("t", "u", "v"):
+        torch.testing.assert_close(getattr(hk.hit, f)[m], getattr(hp.hit, f)[m], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_grid_trace_kernel_matches_plain(dev, any_hit):
+    """K2: every tile's k_cap-cut candidates, no work budget."""
+    v, tr = bumpy_sphere(48, 96)
+    cm = cluster_bvh.build_clusters(torch.from_numpy(v).to(dev), torch.from_numpy(tr).to(dev))
+    o, d = shell_rays(20000, seed=5)
+    work = tile_tracer.prepare_trace(cm, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                                     k_cap=32, sort_octants="morton", queue=False)
+    assert torch.equal(work.n_active, work.counts)
+    before = tile_tracer.grid_trace.launches
+    out_k = tile_tracer.grid_trace(cm.geom_cm, work.rays_cm, work.cand, work.octs, work.counts,
+                                   1e-4, any_hit)
+    torch.cuda.synchronize()
+    assert tile_tracer.grid_trace.launches == before + 1
+    out_p = tile_tracer.queue_trace_plain(cm.geom_cm, work.rays_cm, work.cand, work.octs,
+                                          work.counts, 1e-4, any_hit)
     hk = tile_tracer.finish_trace(cm, work, out_k, any_hit)
     hp = tile_tracer.finish_trace(cm, work, out_p, any_hit)
     assert torch.equal(hk.uncertain, hp.uncertain)

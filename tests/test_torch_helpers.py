@@ -139,17 +139,54 @@ def direct_u_jax(k_s, P):
     return np.concatenate([env, brdf_u_cols(brdf_u_jax(k_brdf, P)), pick], axis=1).astype(np.float32)
 
 
-def frame_randoms_jax(key, P, spp, bounces, H) -> FrameRandoms:
-    """render_stage1's (use_restir=False, compact_chunks=1) draws from `key`."""
+def frame_randoms_jax(key, P, spp, bounces, H, static=None) -> FrameRandoms:
+    """render_stage1's (compact_chunks=1) draws from `key`; with a ReSTIR
+    `static` (use_restir=True) the ReSTIR draws in place of the direct ones."""
     import jax
 
-    k_jit, k_di, k_ind, _ = jax.random.split(key, 4)
+    k_jit, k_di, k_ind, k_frame = jax.random.split(key, 4)
     jitter = np.asarray(jax.random.normal(k_jit, (P, 3)))
     tap = (np.asarray(jax.random.normal(jax.random.fold_in(k_jit, 7), (P, 2))) if H > 0
            else np.zeros((P, 2), np.float32))
-    direct = np.stack([direct_u_jax(jax.random.fold_in(k_di, s), P) for s in range(spp)])
-    return FrameRandoms(jitter=t(jitter), tap=t(tap), direct=t(direct),
-                        indirect=t(indirect_u_jax(k_ind, spp * P, bounces)))
+    base = dict(jitter=t(jitter), tap=t(tap), indirect=t(indirect_u_jax(k_ind, spp * P, bounces)))
+    if static is None or not static.use_restir:
+        direct = np.stack([direct_u_jax(jax.random.fold_in(k_di, s), P) for s in range(spp)])
+        return FrameRandoms(direct=t(direct), **base)
+    return FrameRandoms(direct=None, **base, **restir_randoms_jax(k_di, k_frame, P, static))
+
+
+def restir_randoms_jax(k_di, k_frame, P, static):
+    """The ReSTIR draws of render_stage1 (its non-chunked chain) as the
+    port's FrameRandoms fields: offsets from fold_in(frame key, 99), light
+    tiles from fold_in(k_di, 10_007), initial RIS from fold_in(k_di, 1), and
+    per spp the temporal and spatial keys of fold_in(k_di, s)."""
+    import jax
+
+    spp, nl, nbs = static.spp, static.restir_light_samples, static.restir_brdf_samples
+    nn, T, S = static.restir_neighbors, static.restir_tiles, static.restir_tile_size
+    k1, k2 = jax.random.split(jax.random.fold_in(k_frame, 99))
+    offs_u = np.stack([np.asarray(jax.random.uniform(k1, (static.restir_offsets,))),
+                       np.asarray(jax.random.uniform(k2, (static.restir_offsets,)))], -1)
+    tiles_u = np.asarray(jax.random.uniform(jax.random.fold_in(k_di, 10_007), (T, S, 2)))
+    ki_t, ki_b, ki_u, ki_s = jax.random.split(jax.random.fold_in(k_di, 1), 4)
+    Nb = spp * P
+    out = dict(
+        restir_tiles=t(tiles_u), restir_offsets=t(offs_u),
+        init_tile=t(jax.random.randint(ki_t, (Nb,), 0, T), np.int64),
+        init_blk=t(jax.random.randint(ki_b, (Nb,), 0, max(S // max(nl, 1), 1)), np.int64),
+        init_us=t(jax.random.uniform(ki_u, (Nb, 1 + nbs))),
+        init_bu=t(jax.random.uniform(ki_s, (Nb, max(nbs, 1) * 5))),
+    )
+    tm, st, us = [], [], []
+    for s in range(spp):
+        _, _, k_tm, k_sp = jax.random.split(jax.random.fold_in(k_di, s), 4)
+        k_off, k_pick = jax.random.split(k_sp)
+        tm.append(np.asarray(jax.random.uniform(k_tm, (P,))))
+        st.append(np.asarray(jax.random.randint(k_off, (P,), 0, static.restir_offsets)))
+        us.append(np.asarray(jax.random.uniform(k_pick, (nn + 1, P))))
+    out.update(temporal_u=t(np.stack(tm)), spatial_start=t(np.stack(st), np.int64),
+               spatial_us=t(np.stack(us)))
+    return out
 
 
 def small_spec_kwargs():

@@ -9,7 +9,15 @@ by one count.  Env lookups and BRDF values: 99.9% within rtol 1e-5, all
 within 2e-4 (texel seams of the bilinear lookup; the GGX peak cancels in
 its denominator).  The pdf of a sampled direction sits on that peak: at
 the material's lowest roughness (alpha = 0.0064) one ulp of h.z moves D by
-~0.3%, so 98% within 1e-5 and all within 1e-2.
+~0.3%.  The pdf of a random light direction meets the same cancellation
+more mildly: at alpha 0.05-0.10 (roughness 0.22-0.31) one ulp of h.z moves
+D by up to 5e-5, so 99.9% within 1e-4 and all within 2e-4.  A sampled half
+vector has sin(theta) = sqrt(1 - cos^2) with cos within a few 1e-5 of 1 at
+those alphas, so one ulp of cos (XLA's CPU sqrt and division round
+differently from PyTorch's on some hosts) moves the sampled direction and
+its weight by up to ~1e-3 relative in their small components, and its pdf
+by up to ~0.5%: direction and weight 99.9% within 1e-4 and all within
+2e-3, pdf 98% within 1e-4 and all within 1e-2.
 """
 
 import jax
@@ -107,7 +115,7 @@ def test_brdf_eval_pdf_sample():
     assert_close_mostly(n(f_got), np.asarray(f_ref))
     p_ref = jbrdf.brdf_pdf(jnp.asarray(wv), jnp.asarray(wl), aj, pdj, psj)
     p_got = tbrdf.brdf_pdf(t(wv), t(wl), at, pdt, pst)
-    assert_close_mostly(n(p_got), np.asarray(p_ref))
+    assert_close_mostly(n(p_got), np.asarray(p_ref), rtol=1e-4, frac=0.999, rtol_all=2e-4)
 
     key = jax.random.PRNGKey(4)
     k_sel, k_d, k_s = jax.random.split(key, 3)
@@ -117,8 +125,9 @@ def test_brdf_eval_pdf_sample():
     np.testing.assert_array_equal(n(s_got.valid), np.asarray(s_ref.valid))
     np.testing.assert_array_equal(n(s_got.specular_bounce), np.asarray(s_ref.specular_bounce))
     for f in ("w_light_l", "weight"):
-        assert_close_mostly(n(getattr(s_got, f)), np.asarray(getattr(s_ref, f)))
-    assert_close_mostly(n(s_got.pdf), np.asarray(s_ref.pdf), frac=0.98, rtol_all=1e-2)
+        assert_close_mostly(n(getattr(s_got, f)), np.asarray(getattr(s_ref, f)), rtol=1e-4,
+                            rtol_all=2e-3)
+    assert_close_mostly(n(s_got.pdf), np.asarray(s_ref.pdf), rtol=1e-4, frac=0.98, rtol_all=1e-2)
 
     nrm = unit_dirs(N, 9)
     np.testing.assert_allclose(n(tbrdf.to_global(tbrdf.to_local(t(wl), t(nrm)), t(nrm))), wl, atol=1e-5)

@@ -106,11 +106,17 @@ def test_compact_chunks_equivalence():
 
 
 def test_unported_options_raise():
+    """What the port does not have yet raises: the lbvh and cluster tracer
+    kinds, and the LPIPS term of the stage-1 loss."""
+    from mirres_restir_nerf_mesh_torch.config import Config, finalize
+    from mirres_restir_nerf_mesh_torch.ops.tracer import Tracer
+    from mirres_restir_nerf_mesh_torch.train.stage1 import stage1_loss
+
+    for kind in ("lbvh", "cluster"):
+        with pytest.raises(NotImplementedError):
+            Tracer(None, kind=kind)
     st = ts.Stage1Static(tris=torch.zeros((1, 3), dtype=torch.int64), nerf_spec=NeRFSpec(),
-                         mat_spec=MaterialSpec(), use_restir=True)
+                         mat_spec=MaterialSpec(), H=2, W=2)
+    cfg = finalize(Config(bound=1.0, stage=1, lambda_lpips=0.1))
     with pytest.raises(NotImplementedError):
-        ts.render_stage1(None, st, torch.zeros((3, 3)), torch.zeros((4, 3)), torch.zeros((4, 3)))
-    st = ts.Stage1Static(tris=torch.zeros((1, 3), dtype=torch.int64), nerf_spec=NeRFSpec(),
-                         mat_spec=MaterialSpec(), denoise_iters=2)
-    with pytest.raises(NotImplementedError):
-        ts.render_stage1(None, st, torch.zeros((3, 3)), torch.zeros((4, 3)), torch.zeros((4, 3)))
+        stage1_loss(None, st, torch.zeros((3, 3)), None, {}, cfg)

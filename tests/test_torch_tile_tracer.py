@@ -167,3 +167,31 @@ def test_two_level_prep_matches(monkeypatch):
     np.testing.assert_array_equal(n(got_t.uncertain), np.asarray(ref_t.uncertain))
     assert np.asarray(ref_t.uncertain).any()
     assert_hits_match(ref_t.hit, got_t.hit)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tile_trace_grid_matches_reference(mesh32, any_hit):
+    """queue=False (the dense grid, kernel K2 and its plain version): no
+    work budget, `dropped` from the k_cap cut alone.  Hits, `uncertain` and
+    `dropped` as the reference's interpret-mode _kernel, closest and any hit."""
+    jcm, tcm = mesh32
+    o, d = shell_rays(1536, seed=21)
+    tm = np.where(np.random.RandomState(5).rand(1536) < 0.7, 1e9, 0.0).astype(np.float32)
+    kw = dict(k_cap=12, sort_octants="morton", queue=False)
+    ref = jt.tile_trace(jcm, jnp.asarray(o), jnp.asarray(d), any_hit=any_hit,
+                        t_max=jnp.asarray(tm), **kw)
+    got = tt.tile_trace(tcm, t(o), t(d), any_hit=any_hit, t_max=t(tm), **kw)
+    np.testing.assert_array_equal(n(got.uncertain), np.asarray(ref.uncertain))
+    u = np.asarray(ref.uncertain)
+    assert u.any() and not u.all()
+    assert_hits_match(ref.hit, got.hit)
+    work = tt.prepare_trace(tcm, t(o), t(d), t_max=t(tm), **kw)
+    assert torch.equal(work.n_active, work.counts)
+    dropped_k_cap = tt._octant_candidates_blocked(tcm, work.rays_cm[:, 0:3].transpose(1, 2),
+                                                  work.rays_cm[:, 3:6].transpose(1, 2),
+                                                  work.rays_cm[:, 6], 1e-4, 12)[3]
+    assert torch.equal(work.dropped, dropped_k_cap)
+    occ = tt.occluded_tiles(tcm, t(o), t(d), t(tm), k_cap=12, sort_octants="morton", queue=False)
+    occ_ref = jt.occluded_tiles(jcm, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm), k_cap=12,
+                                sort_octants="morton", queue=False)
+    assert (n(occ) == np.asarray(occ_ref)).mean() >= 0.999
