@@ -21,7 +21,12 @@ Phases (any failure exits non-zero):
    and any hit on the rays of one spatial cross-visibility launch recorded
    from a ReSTIR bench frame (the shape of 32 of its 37 launches).  K2 (the
    tile tracer without the work budget, ``queue=False``) on the primary
-   rays and the direct-shadow batch.  Hit prims agree on >= 99.99% of
+   rays and the direct-shadow batch, each batch traced first through the
+   K2 path, the public entry points (``intersect_tiles_t`` /
+   ``occluded_tiles_t`` with queue=False, the counters zeroed just before
+   and read just after): their hits and uncertain masks must equal the
+   budgeted (K1) entry points', which are exact at these budgets.  Hit
+   prims agree on >= 99.99% of
    rays, the uncertain masks are equal, and t, u, v agree within 1e-5
    relative where the prims agree.  K4 (scatter-add, the hash-grid
    backward) at one material encode's backward of the bench frame: the
@@ -52,11 +57,7 @@ Phases (any failure exits non-zero):
    initial winners' visibility fused in), 32 spatial cross visibility).
 4d. bench.py's own train step with that static (the counters zeroed
    again): one warm and three timed steps, loss, peak memory, K4 launched
-   3 times a step, uncertain_count 0.
-4e. The K2 path (the counters zeroed again): the public tracer entry points
-   with queue=False, intersect_tiles on the bench frame's primary rays and
-   occluded_tiles on its direct-shadow batch; their hits must equal the
-   budgeted (K1) path's, which is exact at these budgets.
+   3 times and K1 37 times a step, uncertain_count 0.
 5. Reference check: a 64x64, spp-2 frame of the small mesh in fp32 on the
    card against the same frame on the CPU (the plain versions, which the
    CPU tests hold against the JAX package), same weights and randoms.
@@ -316,15 +317,39 @@ def check_tile(name, cm, rays_o, rays_d, any_hit, sort, k_cap, queue_avg, t_max=
                 plain_ms=plain_ms, **bound(flops, nbytes))
 
 
-def check_grid(name, cm, rays_o, rays_d, any_hit, sort, k_cap, t_max=1e10):
-    """K2 against its plain version (queue_trace_plain with the tiles'
-    counts) on one queue=False launch's prepared work."""
+def check_grid(name, cm, rays_o, rays_d, any_hit, sort, k_cap, queue_avg, counts,
+               t_max=1e10):
+    """The K2 path on one batch, then K2 against its plain version.
+
+    The public entry point with queue=False runs with the launch counters
+    zeroed just before and read just after (`counts`: (zero, read)), and
+    its hits and uncertain mask are held against the budgeted (K1) entry
+    point's.  Then the kernel and queue_trace_plain (with the tiles'
+    counts) run on that launch's prepared work."""
     import torch
 
     from mirres_restir_nerf_mesh_torch.ops import tile_tracer as tt
 
-    work = tt.prepare_trace(cm, rays_o, rays_d, t_max=t_max, k_cap=k_cap, sort_octants=sort,
-                            queue=False)
+    zero, read = counts
+    kw = dict(k_cap=k_cap, sort_octants=sort)
+    zero()
+    if any_hit:
+        grid = tt.occluded_tiles_t(cm, rays_o, rays_d, t_max, queue=False, **kw)
+    else:
+        res = tt.intersect_tiles_t(cm, rays_o, rays_d, t_max=t_max, queue=False, **kw)
+        grid = (res.hit.prim, res.uncertain)
+    torch.cuda.synchronize()
+    path_launches = read()
+    if any_hit:
+        queue = tt.occluded_tiles_t(cm, rays_o, rays_d, t_max, queue_avg=queue_avg, **kw)
+    else:
+        res = tt.intersect_tiles_t(cm, rays_o, rays_d, t_max=t_max, queue_avg=queue_avg, **kw)
+        queue = (res.hit.prim, res.uncertain)
+    entry_equal = float((grid[0] == queue[0]).float().mean())
+    entry_uncertain = int(grid[1].sum()) + int(queue[1].sum())
+    del grid, queue
+
+    work = tt.prepare_trace(cm, rays_o, rays_d, t_max=t_max, queue=False, **kw)
     args = (cm.geom_cm, work.rays_cm, work.cand, work.octs, work.counts, 1e-4, any_hit)
     out_k = tt.grid_trace(*args)
     torch.cuda.synchronize()
@@ -341,12 +366,17 @@ def check_grid(name, cm, rays_o, rays_d, any_hit, sort, k_cap, t_max=1e10):
     flops = stats["items"] * R * SLAB_FLOPS + stats["useful_pairs"] * S * MT_FLOPS
     nbytes = (cm.geom_cm.numel() * 4 + work.rays_cm.numel() * 4 + items * 8 + T * 4
               + T * 5 * R * 4)
-    return dict(shape=f"{rays_o.shape[0]} rays ({int((work.t_max > 1e-4).sum())} live), "
-                      f"{T} tiles, {items} items (no budget), "
-                      f"{stats['useful_pairs']} useful (ray, cluster) pairs",
-                any_hit=any_hit, sort=str(sort), k_cap=k_cap, prim_agree=agree,
-                uncertain=int(hk.uncertain.sum()), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **bound(flops, nbytes))
+    out = dict(shape=f"{rays_o.shape[0]} rays ({int((work.t_max > 1e-4).sum())} live), "
+                     f"{T} tiles, {items} items (no budget), "
+                     f"{stats['useful_pairs']} useful (ray, cluster) pairs",
+               any_hit=any_hit, sort=str(sort), k_cap=k_cap, prim_agree=agree,
+               uncertain=int(hk.uncertain.sum()), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               path_launches=path_launches, entry_points_equal=entry_equal,
+               entry_points_uncertain=entry_uncertain, **bound(flops, nbytes))
+    if path_launches["grid_trace"] != 1 or sum(path_launches.values()) != 1 or \
+            entry_equal != 1.0 or entry_uncertain:
+        raise AssertionError(f"{name}: the K2 path's entry point: {out}")
+    return out
 
 
 def record_occluded(run):
@@ -753,10 +783,23 @@ def main(argv=None) -> int:
     so, sd, st_max = shadow_rays(vb, fb, cm_big, cam, sky_env(), gen)
     k1_checks.append(check_tile("K1 any, direct shadow", cm_big, so, sd, True, "morton", 640, 64,
                                 t_max=st_max))
+    counters = (tile_tracer.queue_trace, tile_tracer.grid_trace, dense_tracer.dense_hit,
+                scatter.scatter_add)
+
+    def zero_counts():
+        for c in counters:
+            c.launches = 0
+
+    def read_counts():
+        return {c.__name__: c.launches for c in counters}
+
+    # the K2 path: the queue=False entry points, one launch on each batch
     k2_checks = [check_grid("K2 closest, primary", cm_big, cam["rays_o"], d_prim, False, False,
-                            640),
-                 check_grid("K2 any, direct shadow", cm_big, so, sd, True, "morton", 640,
-                            t_max=st_max)]
+                            640, 256, (zero_counts, read_counts)),
+                 check_grid("K2 any, direct shadow", cm_big, so, sd, True, "morton", 640, 64,
+                            (zero_counts, read_counts), t_max=st_max)]
+    launches_grid = {k: sum(c["path_launches"][k] for c in k2_checks)
+                     for k in k2_checks[0]["path_launches"]}
     budget = dict(k_cap=640, queue_avg=256, k_cap_incoherent=640, queue_avg_incoherent=64)
     static = frame_static(f_big, H, W, FRAME_SPP, torch.bfloat16, **budget)
     static_r = frame_static(f_big, H, W, FRAME_SPP, torch.bfloat16, **budget, **RESTIR)
@@ -774,20 +817,10 @@ def main(argv=None) -> int:
         log("K1 tile_trace: " + json.dumps(c))
     for c in k2_checks:
         log("K2 grid_trace: " + json.dumps(c))
-    del bo, bd, xo, xd, xt
+    del bo, bd, xo, xd, xt, so, sd, st_max
     k4 = check_scatter(vb, fb, cm_big, cam, gen)
     log("K4 scatter_add: " + json.dumps(k4))
     torch.cuda.empty_cache()
-
-    counters = (tile_tracer.queue_trace, tile_tracer.grid_trace, dense_tracer.dense_hit,
-                scatter.scatter_add)
-
-    def zero_counts():
-        for c in counters:
-            c.launches = 0
-
-    def read_counts():
-        return {c.__name__: c.launches for c in counters}
 
     def timed_frames(st, name, n_frames=TIMED_FRAMES):
         """One warm and n_frames timed frames of bench.py's frame -> (times, last out)."""
@@ -950,31 +983,12 @@ def main(argv=None) -> int:
         prof_rt = profile_train_phases(state, static_r, vb, topo, cam, cfg_r, gen, out_dir,
                                        prefix="restir_train")
         log("restir train step profile: " + json.dumps(prof_rt))
-    if launches_rt["scatter_add"] != K4_STEP_LAUNCHES * (1 + TIMED_STEPS):
-        raise AssertionError(f"restir train step launches: {launches_rt} "
-                             f"({K4_STEP_LAUNCHES} K4 launches a step expected)")
+    if launches_rt["scatter_add"] != K4_STEP_LAUNCHES * (1 + TIMED_STEPS) or \
+            train_r["K1_launches_per_step"] != k1_expected:
+        raise AssertionError(f"restir train step launches: {launches_rt} ({K4_STEP_LAUNCHES} "
+                             f"K4 and {k1_expected} K1 launches a step expected)")
     del state, aux
     torch.cuda.empty_cache()
-
-    # ---- 4e. the K2 path: the public tracer entry points with queue=False
-    zero_counts()
-    grid_hit = tile_tracer.intersect_tiles(cm_big, cam["rays_o"], d_prim, k_cap=640, queue=False)
-    grid_occ = tile_tracer.occluded_tiles(cm_big, so, sd, st_max, k_cap=640,
-                                          sort_octants="morton", queue=False)
-    torch.cuda.synchronize()
-    launches_grid = read_counts()
-    queue_hit = tile_tracer.intersect_tiles(cm_big, cam["rays_o"], d_prim, k_cap=640,
-                                            queue_avg=256)
-    queue_occ = tile_tracer.occluded_tiles(cm_big, so, sd, st_max, k_cap=640,
-                                           sort_octants="morton", queue_avg=64)
-    grid_path = {"launches": launches_grid,
-                 "primary_prims_equal": float((grid_hit.prim == queue_hit.prim).float().mean()),
-                 "shadow_occluded_equal": float((grid_occ == queue_occ).float().mean())}
-    log("K2 path (queue=False entry points): " + json.dumps(grid_path))
-    if launches_grid["grid_trace"] != 2 or grid_path["primary_prims_equal"] != 1.0 or \
-            grid_path["shadow_occluded_equal"] != 1.0:
-        raise AssertionError(f"K2 path: {grid_path}")
-    del so, sd, st_max
 
     # ---- 5. reference check: card vs CPU on a small fp32 frame
     Hs = Ws = 64
@@ -1054,7 +1068,7 @@ def main(argv=None) -> int:
         (out_dir / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": kernels, "frame": frame,
              "train_step": train, "restir_frame": frame_r, "restir_train_step": train_r,
-             "grid_trace_path": grid_path, "reference_check": agree,
+             "reference_check": agree,
              "train_reference_check": agree_train, "restir_reference_check": agree_restir},
             indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,14 +1,13 @@
 // Tile tracer kernel: rays of one tile x that tile's candidate clusters.
 //
 // Replaces two TPU kernels of mirres_restir_nerf_mesh_tpu/ops/tile_tracer.py
-// with one body and two launchers:
+// with one body and one launcher, `tile_trace_launch`, each tile walking its
+// first n_run[tile] candidates:
 // - K1 `_queue_kernel` (a flat work queue of (tile, candidate) grid steps
 //   with fresh/copy flags carrying a tile's state across queue chunks):
-//   `tile_trace_launch`, each tile walking its first n_active candidates,
-//   the count left by the work budget;
+//   n_run is n_active, the count left by the work budget;
 // - K2 `_kernel` (the dense (tile, k_cap) grid of `tile_trace(queue=False)`,
-//   whose steps past counts[tile] do nothing): `grid_trace_launch`, each
-//   tile walking its first counts[tile] candidates, no budget.
+//   whose steps past counts[tile] do nothing): n_run is counts, no budget.
 //
 // Design for Hopper: one block per ray tile, one thread per ray (R = 512).
 // The block walks its tile's first n_active[tile] candidates in entry
@@ -105,10 +104,12 @@ __global__ void __launch_bounds__(1024) tile_trace_kernel(
   o[4 * R + r] = best_cid;
 }
 
-static int launch(const float* geom, const float* rays, const int* cand,
-                  const int* octs, const int* n_active, float* out, int T,
-                  int K, int S, int R, float t_min, int any_hit,
-                  void* stream) {
+// Launches on `stream`; return cudaGetLastError() (0 = launched).
+extern "C" int tile_trace_launch(const float* geom, const float* rays,
+                                 const int* cand, const int* octs,
+                                 const int* n_run, float* out, int T, int K,
+                                 int S, int R, float t_min, int any_hit,
+                                 void* stream) {
   const size_t smem = sizeof(float) * 16 * (size_t)S;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -117,28 +118,6 @@ static int launch(const float* geom, const float* rays, const int* cand,
     if (e != cudaSuccess) return (int)e;
   }
   tile_trace_kernel<<<T, R, smem, (cudaStream_t)stream>>>(
-      geom, rays, cand, octs, n_active, out, K, S, t_min, any_hit);
+      geom, rays, cand, octs, n_run, out, K, S, t_min, any_hit);
   return (int)cudaGetLastError();
-}
-
-// Launches on `stream`; return cudaGetLastError() (0 = launched).
-// K1: n_active[tile] candidates after the work budget.
-extern "C" int tile_trace_launch(const float* geom, const float* rays,
-                                 const int* cand, const int* octs,
-                                 const int* n_active, float* out, int T, int K,
-                                 int S, int R, float t_min, int any_hit,
-                                 void* stream) {
-  return launch(geom, rays, cand, octs, n_active, out, T, K, S, R, t_min,
-                any_hit, stream);
-}
-
-// K2: counts[tile] candidates, every candidate the tile's frustums admit
-// within k_cap.
-extern "C" int grid_trace_launch(const float* geom, const float* rays,
-                                 const int* cand, const int* octs,
-                                 const int* counts, float* out, int T, int K,
-                                 int S, int R, float t_min, int any_hit,
-                                 void* stream) {
-  return launch(geom, rays, cand, octs, counts, out, T, K, S, R, t_min,
-                any_hit, stream);
 }

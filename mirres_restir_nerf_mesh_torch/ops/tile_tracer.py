@@ -304,21 +304,21 @@ def queue_trace_plain(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_
     return out
 
 
-def _bind(lib, name: str = "tile_trace_launch"):
-    fn = getattr(lib, name)
+def _bind(lib):
+    fn = lib.tile_trace_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_float, ctypes.c_int, _VP]
     return fn
 
 
-def _launch(entry: str, geom_cm, rays_cm, cand, octs, n_run, t_min: float,
-            any_hit: bool) -> Optional[torch.Tensor]:
-    """Check the card's inputs and launch one entry of csrc/tile_trace.cu
-    -> out [T,5,R], or None for an empty launch (nothing to run)."""
+def _launch(what: str, geom_cm, rays_cm, cand, octs, n_run, t_min: float,
+            any_hit: bool) -> torch.Tensor:
+    """Check the card's inputs and launch csrc/tile_trace.cu's kernel on each
+    tile's first n_run candidates -> out [T,5,R] (`what` names the caller in
+    errors)."""
     from ..cuda_build import check, load, stream_ptr
 
-    what = entry.replace("_launch", "")
     dev = geom_cm.device
     cand = cand.to(torch.int32).contiguous()
     octs = octs.to(torch.int32).contiguous()
@@ -335,7 +335,7 @@ def _launch(entry: str, geom_cm, rays_cm, cand, octs, n_run, t_min: float,
     out = torch.empty((T_, 5, R), dtype=torch.float32, device=dev)
     if not T_:
         return out
-    fn = _bind(load("tile_trace"), entry)
+    fn = _bind(load("tile_trace"))
     check(fn(geom_cm.data_ptr(), rays_cm.data_ptr(), cand.data_ptr(), octs.data_ptr(),
              n_run.data_ptr(), out.data_ptr(), T_, cand.shape[1], S, R, t_min, int(any_hit),
              stream_ptr(dev)), what)
@@ -347,7 +347,7 @@ def queue_trace(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_hit: b
     the card, queue_trace_plain for tensors on the CPU -> out [T,5,R]."""
     if not geom_cm.is_cuda:
         return queue_trace_plain(geom_cm, rays_cm, cand, octs, n_active, t_min, any_hit)
-    out = _launch("tile_trace_launch", geom_cm, rays_cm, cand, octs, n_active, t_min, any_hit)
+    out = _launch("queue_trace", geom_cm, rays_cm, cand, octs, n_active, t_min, any_hit)
     if rays_cm.shape[0]:
         queue_trace.launches += 1
     return out
@@ -362,7 +362,7 @@ def grid_trace(geom_cm, rays_cm, cand, octs, counts, t_min: float, any_hit: bool
     for tensors on the CPU -> out [T,5,R]."""
     if not geom_cm.is_cuda:
         return queue_trace_plain(geom_cm, rays_cm, cand, octs, counts, t_min, any_hit)
-    out = _launch("grid_trace_launch", geom_cm, rays_cm, cand, octs, counts, t_min, any_hit)
+    out = _launch("grid_trace", geom_cm, rays_cm, cand, octs, counts, t_min, any_hit)
     if rays_cm.shape[0]:
         grid_trace.launches += 1
     return out
