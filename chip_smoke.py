@@ -25,16 +25,27 @@ Phases (any failure exits non-zero):
    K2 path, the public entry points (``intersect_tiles_t`` /
    ``occluded_tiles_t`` with queue=False, the counters zeroed just before
    and read just after): their hits and uncertain masks must equal the
-   budgeted (K1) entry points', which are exact at these budgets.  Hit
-   prims agree on >= 99.99% of
-   rays, the uncertain masks are equal, and t, u, v agree within 1e-5
-   relative where the prims agree.  K4 (scatter-add, the hash-grid
+   budgeted (K1) entry points', which are exact at these budgets.  K1 and
+   K2 run at the split the wrapper picks for the launch (blocks per tile,
+   from the SM count) and, where that is not 1, unsplit as well: their
+   output rows must equal the plain version's exactly (hence prims 100%,
+   max abs error 0, equal uncertain masks).  Each check prints its split,
+   the event time of the wrapper call, its device time (CUDA events
+   around 20 calls queued behind a sleep kernel that outlasts their
+   issue, so that the host's launch cost drops out) and its host time, and
+   event and device time for the unsplit kernel where the split is not 1.  (No profiler runs before the main path: once torch.profiler has run
+   in a process, every later launch costs the host more, and the frames
+   and steps here are host-bound.)  K4 (scatter-add, the hash-grid
    backward) at one material encode's backward of the bench frame: the
-   covered G-buffer points' 16 levels x 8 corners of absolute row ids into
-   the 6,328,848-row material table, random fp32 updates; within
+   covered G-buffer points' 16 levels x 8 corners of absolute row ids
+   ([N, 128], the layout GatherRows passes) into the 6,328,848-row
+   material table, random fp32 updates, through the 2-D and the 1-D entry,
+   and the same updates all into 8 rows (contention); within
    1e-5 * sum|upd| at each row; timed beside its plain version and the one
    PyTorch call that computes the same function (index_add_ on a zeroed
-   table).
+   table): event times of the calls, and device times of the kernel alone,
+   the zeroing alone and index_add_ alone on inputs and a table allocated
+   beforehand (queued the same way).
 4. The main path: the launch counters are zeroed, then ``render_stage1``
    (use_restir=False) renders bench.py's operating point (256x256, spp 32,
    2 bounces, ~100k triangles, k_cap 640, queue_avg 256/64, bf16 MLPs) once
@@ -62,14 +73,21 @@ Phases (any failure exits non-zero):
    card against the same frame on the CPU (the plain versions, which the
    CPU tests hold against the JAX package), same weights and randoms.
 5b. The same for one train step: loss within 1e-3 relative; per optimizer
-   group the gradient and the params after the step within 5e-2 relative
-   L2 with cosine >= 0.999, and the NeRF group's gradient (its image
-   depends on the G-buffer hits alone, no Monte Carlo decision) within
-   1e-4.  (About 1% of the pixels take other Monte Carlo decisions on the
-   card, as in phase 5; the material-encoder rows those pixels touch carry
-   other gradients, ~2.6% of the group's L2, and Adam's first step moves
-   every entry by about +-lr, so an entry whose gradient is rounding noise
-   moves 2 lr apart: ~3.7% on the offsets and the material encoder.)
+   group the gradient within 5e-2 relative L2 with cosine >= 0.999, and the
+   NeRF group's gradient (its image depends on the G-buffer hits alone, no
+   Monte Carlo decision) within 1e-4.  The params after the step are held
+   to the same 5e-2 / 0.999 per group over the entries whose CPU gradient
+   lies clearly above the card's difference from it, |g_cpu| > 8 |g_card -
+   g_cpu| (the count kept is printed; the reading over all entries is
+   printed, not gated).  Below that rule an entry's gradient is noise:
+   about 1% of the pixels take other Monte Carlo decisions on the card, as
+   in phase 5, and Adam's first step moves every entry by about +-lr
+   whatever its gradient's size, so a noise-level entry lands 2 lr apart
+   when its sign flips (~4% of the offsets' and the material encoder's L2
+   over all entries).  Where the rule holds, the two gradients have one
+   sign and the two steps agree.  ``--plant-k4-fault scale|drop`` runs this
+   phase alone with K4's updates scaled by 1.01 or one K4 launch of three
+   dropped, and exits 0 only if the phase then fails.
 5c. The same for a 64x64, spp-2, fp32 ReSTIR frame of the small mesh with
    normal-AO, without and with the denoiser (denoise_iters 2): mask,
    face_id and every deterministic buffer (normal_ao included) agree on
@@ -148,6 +166,44 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
         e.record()
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
+    return float(statistics.median(times))
+
+
+def host_ms(fn) -> float:
+    """Host time of one fn() call that only launches work (no sync inside),
+    after a warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def queued_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one fn() that only launches work on inputs and
+    outputs allocated beforehand: CUDA events around n calls queued behind
+    a sleep kernel three times as long as the host takes to issue them, so
+    the card runs them back to back whatever the host's launch cost;
+    median over reps of the span / n."""
+    import torch
+
+    cycles = int(max(10.0, 3 * n * host_ms(fn)) * 2e6)    # ~2 GHz SM clock
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e) / n)
     return float(statistics.median(times))
 
 
@@ -285,23 +341,57 @@ def shadow_rays(verts, tris, cm, cam, env, gen):
             torch.where(ok, 1e9, 0.0))
 
 
-def check_tile(name, cm, rays_o, rays_d, any_hit, sort, k_cap, queue_avg, t_max=1e10):
-    """K1 against its plain version on one launch's prepared work."""
+def kernel_vs_plain(name, work, cm, run, args):
+    """Run the kernel (split None = its own choice, then split 1 where that
+    differs) and the plain version on one launch's prepared work: rows
+    must be equal, as must the finished hits and uncertain masks -> (stats
+    of the plain version, hit agreement, max abs error, splits checked)."""
     import torch
 
+    from mirres_restir_nerf_mesh_torch.ops import tile_tracer as tt
+
+    stats = {}
+    out_p = tt.queue_trace_plain(*args, stats=stats)
+    hp = tt.finish_trace(cm, work, out_p, args[-1])
+    T = work.rays_cm.shape[0]
+    auto = tt.split_factor(T, torch.cuda.get_device_properties(0).multi_processor_count)
+    splits = [auto] + ([1] if auto != 1 else [])
+    err = 0.0
+    for sp in splits:
+        out_k = run(*args, split=sp)
+        torch.cuda.synchronize()
+        hk = tt.finish_trace(cm, work, out_k, args[-1])
+        agree, e = hit_agreement(f"{name} (split {sp})", hk.hit, hp.hit, hk.uncertain,
+                                 hp.uncertain)
+        err = max(err, e, float((out_k - out_p).abs().max()))
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"{name} (split {sp}): kernel rows differ from the plain "
+                                 f"version's on {int((out_k != out_p).sum())} entries")
+    return stats, agree, err, splits, hk
+
+
+def k1_times(run, args, splits):
+    """At the kernel's own split: event ms of the wrapper call, its device
+    ms (queued_ms: the int32 casts, the key memset, the kernel and the
+    finish kernel) and its host ms; event and device ms at split 1 where
+    that differs."""
+    res = dict(ms=cuda_ms(lambda: run(*args), 10), device_ms=queued_ms(lambda: run(*args)),
+               host_ms=host_ms(lambda: run(*args)))
+    if len(splits) > 1:
+        res["ms_split_1"] = cuda_ms(lambda: run(*args, split=1), 10)
+        res["device_ms_split_1"] = queued_ms(lambda: run(*args, split=1))
+    return res
+
+
+def check_tile(name, cm, rays_o, rays_d, any_hit, sort, k_cap, queue_avg, t_max=1e10):
+    """K1 against its plain version on one launch's prepared work."""
     from mirres_restir_nerf_mesh_torch.ops import tile_tracer as tt
 
     work = tt.prepare_trace(cm, rays_o, rays_d, t_max=t_max, k_cap=k_cap, sort_octants=sort,
                             queue_avg=queue_avg)
     args = (cm.geom_cm, work.rays_cm, work.cand, work.octs, work.n_active, 1e-4, any_hit)
-    out_k = tt.queue_trace(*args)
-    torch.cuda.synchronize()
-    stats = {}
-    out_p = tt.queue_trace_plain(*args, stats=stats)
-    hk = tt.finish_trace(cm, work, out_k, any_hit)
-    hp = tt.finish_trace(cm, work, out_p, any_hit)
-    agree, err = hit_agreement(name, hk.hit, hp.hit, hk.uncertain, hp.uncertain)
-    ms = cuda_ms(lambda: tt.queue_trace(*args), 10)
+    stats, agree, err, splits, hk = kernel_vs_plain(name, work, cm, tt.queue_trace, args)
+    times = k1_times(tt.queue_trace, args, splits)
     plain_ms = cuda_ms(lambda: tt.queue_trace_plain(*args), 3, warm=False)
     T, _, R = work.rays_cm.shape
     S = cm.geom_cm.shape[2]
@@ -313,7 +403,8 @@ def check_tile(name, cm, rays_o, rays_d, any_hit, sort, k_cap, queue_avg, t_max=
                       f"{T} tiles, {items} items, "
                       f"{stats['useful_pairs']} useful (ray, cluster) pairs",
                 any_hit=any_hit, sort=str(sort), k_cap=k_cap, queue_avg=queue_avg,
-                prim_agree=agree, uncertain=int(hk.uncertain.sum()), max_abs_err=err, ms=ms,
+                split=splits[0], splits_checked=splits,
+                prim_agree=agree, uncertain=int(hk.uncertain.sum()), max_abs_err=err, **times,
                 plain_ms=plain_ms, **bound(flops, nbytes))
 
 
@@ -351,14 +442,8 @@ def check_grid(name, cm, rays_o, rays_d, any_hit, sort, k_cap, queue_avg, counts
 
     work = tt.prepare_trace(cm, rays_o, rays_d, t_max=t_max, queue=False, **kw)
     args = (cm.geom_cm, work.rays_cm, work.cand, work.octs, work.counts, 1e-4, any_hit)
-    out_k = tt.grid_trace(*args)
-    torch.cuda.synchronize()
-    stats = {}
-    out_p = tt.queue_trace_plain(*args, stats=stats)
-    hk = tt.finish_trace(cm, work, out_k, any_hit)
-    hp = tt.finish_trace(cm, work, out_p, any_hit)
-    agree, err = hit_agreement(name, hk.hit, hp.hit, hk.uncertain, hp.uncertain)
-    ms = cuda_ms(lambda: tt.grid_trace(*args), 10)
+    stats, agree, err, splits, hk = kernel_vs_plain(name, work, cm, tt.grid_trace, args)
+    times = k1_times(tt.grid_trace, args, splits)
     plain_ms = cuda_ms(lambda: tt.queue_trace_plain(*args), 3, warm=False)
     T, _, R = work.rays_cm.shape
     S = cm.geom_cm.shape[2]
@@ -369,8 +454,9 @@ def check_grid(name, cm, rays_o, rays_d, any_hit, sort, k_cap, queue_avg, counts
     out = dict(shape=f"{rays_o.shape[0]} rays ({int((work.t_max > 1e-4).sum())} live), "
                      f"{T} tiles, {items} items (no budget), "
                      f"{stats['useful_pairs']} useful (ray, cluster) pairs",
-               any_hit=any_hit, sort=str(sort), k_cap=k_cap, prim_agree=agree,
-               uncertain=int(hk.uncertain.sum()), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               any_hit=any_hit, sort=str(sort), k_cap=k_cap, split=splits[0],
+               splits_checked=splits, prim_agree=agree,
+               uncertain=int(hk.uncertain.sum()), max_abs_err=err, **times, plain_ms=plain_ms,
                path_launches=path_launches, entry_points_equal=entry_equal,
                entry_points_uncertain=entry_uncertain, **bound(flops, nbytes))
     if path_launches["grid_trace"] != 1 or sum(path_launches.values()) != 1 or \
@@ -404,40 +490,69 @@ def record_occluded(run):
     return calls
 
 
+def scatter_case(name, idx, upd, rows):
+    """K4 through its entry point against its plain version (within
+    1e-5 * sum|upd| at each row), then its times: event ms of the wrapper
+    (zeroed table + kernel) beside zeros + index_add_, and the device ms of
+    the kernel alone, of zeroing the table and of index_add_ alone, each
+    on inputs and a table allocated beforehand (queued_ms)."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops.scatter import (scatter_add, scatter_add_into,
+                                                           scatter_add_plain)
+
+    k = scatter_add(idx, upd, rows)
+    torch.cuda.synchronize()
+    p = scatter_add_plain(idx, upd, rows)
+    err = (k - p).abs()
+    tol = 1e-5 * scatter_add_plain(idx, upd.abs(), rows) + 1e-30
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{name}: differs from its plain version by {float(err.max())}")
+    idx_l, upd_f = idx.reshape(-1).long(), upd.reshape(-1, upd.shape[-1])
+    table = torch.zeros((rows, upd.shape[-1]), device=upd.device)
+
+    def library():
+        return torch.zeros_like(table).index_add_(0, idx_l, upd_f)
+
+    return dict(max_abs_err=float(err.max()), max_err_over_tol=float((err / tol).max()),
+                ms=cuda_ms(lambda: scatter_add(idx, upd, rows), 10),
+                plain_ms=cuda_ms(lambda: scatter_add_plain(idx, upd, rows), 3),
+                library_ms=cuda_ms(library, 10),
+                device_ms=queued_ms(lambda: scatter_add_into(table, idx, upd)),
+                zero_device_ms=queued_ms(table.zero_),
+                library_device_ms=queued_ms(lambda: table.index_add_(0, idx_l, upd_f)))
+
+
 def check_scatter(verts, tris, cm, cam, gen):
     """K4 against its plain version at one material encode's backward of
-    the bench frame (the covered G-buffer points' row ids, random fp32
-    updates), timed beside the plain version and index_add_."""
+    the bench frame (the covered G-buffer points' [N, 128] row ids, random
+    fp32 updates), through the 2-D entry GatherRows uses and the 1-D one,
+    and on a contention-heavy input (the same count of updates, all into 8
+    rows); each timed beside its plain version and index_add_."""
     import torch
 
     from mirres_restir_nerf_mesh_torch.models.material import MaterialSpec
     from mirres_restir_nerf_mesh_torch.ops import hashgrid
-    from mirres_restir_nerf_mesh_torch.ops.scatter import scatter_add, scatter_add_plain
     from mirres_restir_nerf_mesh_torch.ops.tracer import Tracer
     from mirres_restir_nerf_mesh_torch.render.gbuffer import raycast_gbuffer
 
     gb = raycast_gbuffer(verts, tris, Tracer(cm, k_cap=640, queue_avg=256),
                          cam["rays_o"], cam["rays_d"])
     spec = MaterialSpec(bound=1.0).grid
-    idx = hashgrid.encode_rows(gb.position[gb.mask], spec, bound=1.0)[0].reshape(-1).contiguous()
-    rows = spec.n_params
-    upd = torch.randn((idx.shape[0], spec.level_dim), generator=gen, device=idx.device)
-    k = scatter_add(idx, upd, rows)
-    torch.cuda.synchronize()
-    p = scatter_add_plain(idx, upd, rows)
-    err = (k - p).abs()
-    if not bool((err <= 1e-5 * scatter_add_plain(idx, upd.abs(), rows) + 1e-30).all()):
-        raise AssertionError(f"K4 scatter_add: differs from its plain version by {float(err.max())}")
-    idx_l = idx.long()
-    ms = cuda_ms(lambda: scatter_add(idx, upd, rows), 10)
-    plain_ms = cuda_ms(lambda: scatter_add_plain(idx, upd, rows), 3)
-    library_ms = cuda_ms(lambda: torch.zeros((rows, upd.shape[1]), device=upd.device)
-                         .index_add_(0, idx_l, upd), 10)
-    nbytes = idx.numel() * 4 + upd.numel() * 4 + rows * upd.shape[1] * 4
-    return dict(shape=f"{int(gb.mask.sum())} points x {spec.num_levels} levels x 8 corners = "
-                      f"{idx.numel()} updates of {upd.shape[1]} into {rows} rows",
-                max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(0, nbytes))
+    idx = hashgrid.encode_rows(gb.position[gb.mask], spec, bound=1.0)[0].contiguous()
+    rows, C = spec.n_params, spec.level_dim
+    upd = torch.randn((*idx.shape, C), generator=gen, device=idx.device)
+    nbytes = idx.numel() * 4 + upd.numel() * 4 + rows * C * 4
+    res = dict(shape=f"{int(gb.mask.sum())} points x {spec.num_levels} levels x 8 corners = "
+                     f"{idx.numel()} updates of {C} into {rows} rows",
+               **scatter_case("K4 scatter_add", idx, upd, rows), **bound(0, nbytes))
+    flat = scatter_case("K4 scatter_add, 1-D entry", idx.reshape(-1), upd.reshape(-1, C), rows)
+    few = torch.randint(0, 8, idx.shape, generator=gen, device=idx.device, dtype=torch.int32)
+    hot = scatter_case("K4 scatter_add, all updates into 8 rows", few, upd, 8)
+    res["one_d_entry"] = {k: flat[k] for k in ("max_abs_err", "ms", "device_ms")}
+    res["contention"] = dict(shape=f"{idx.numel()} updates of {C} into 8 rows", **hot,
+                             **bound(0, idx.numel() * 4 + upd.numel() * 4 + 8 * C * 4))
+    return res
 
 
 def frame_static(tris, H, W, spp, compute_dtype, **kw):
@@ -648,9 +763,9 @@ def group_agreement(got, ref):
                        for x, r in zip(got[g], ref[g])])
         b = torch.cat([(torch.zeros_like(r) if r is None else r).detach().cpu().double().reshape(-1)
                        for r in ref[g]])
-        nb = float(b.norm())
+        na, nb = float(a.norm()), float(b.norm())
         res[g] = (float((a - b).norm()) / max(nb, 1e-300),
-                  float(a @ b) / max(float(a.norm()) * nb, 1e-300))
+                  1.0 if na == nb == 0.0 else float(a @ b) / max(na * nb, 1e-300))
     return res
 
 
@@ -664,11 +779,34 @@ def state_to(state, dev):
     return type(state)(params, opt, state.step)
 
 
+def above_noise(g_card, g_cpu, factor: float = 8.0):
+    """{group: [bool masks]}: entries whose CPU gradient exceeds factor x
+    the card's difference from it (None = 0: no entry kept)."""
+    import torch
+
+    res = {}
+    for g, ref in g_cpu.items():
+        res[g] = []
+        for a, b in zip(g_card[g], ref):
+            if a is None or b is None:
+                shape = (b if b is not None else a).shape
+                res[g].append(torch.zeros(shape, dtype=torch.bool))
+                continue
+            a, b = a.detach().cpu().double(), b.detach().cpu().double()
+            res[g].append(b.abs() > factor * (a - b).abs())
+    return res
+
+
+def select(tree, masks):
+    """{group: [x[mask]]} of a {group: [tensors]}."""
+    return {g: [x.detach().cpu()[m] for x, m in zip(tree[g], masks[g])] for g in masks}
+
+
 def check_train_reference(v_small, f_small, vs_dev, seed, dev):
     """One train step of the 64x64, spp-2, fp32 small-mesh case on the card
-    against the same step on the CPU: same params, state and randoms (bounds:
-    the module docstring, phase 5b).  "update" (params after minus before)
-    is reported, not gated."""
+    against the same step on the CPU: same params, state and randoms (bounds
+    and the rule for the params after the step: the module docstring, phase
+    5b).  "update" (params after minus before) is reported, not gated."""
     import torch
 
     from mirres_restir_nerf_mesh_torch.render.stage1 import draw_frame_randoms
@@ -696,9 +834,14 @@ def check_train_reference(v_small, f_small, vs_dev, seed, dev):
     after_c, after_g = tr.group_leaves(new_c.params), tr.group_leaves(new_g.params)
     delta = {g: [a - b for a, b in zip(after_c[g], before[g])] for g in before}
     delta_g = {g: [a.cpu() - b for a, b in zip(after_g[g], before[g])] for g in before}
+    keep = above_noise(g_g, g_c)
     res = {"loss_cpu": float(loss_c), "loss_card": float(loss_g),
            "loss_rel": abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
-           "grad": group_agreement(g_g, g_c), "params_after": group_agreement(after_g, after_c),
+           "grad": group_agreement(g_g, g_c),
+           "params_after": group_agreement(select(after_g, keep), select(after_c, keep)),
+           "params_after_kept": {g: [int(sum(int(m.sum()) for m in ms)),
+                                     int(sum(m.numel() for m in ms))] for g, ms in keep.items()},
+           "params_after_all": group_agreement(after_g, after_c),
            "update": group_agreement(delta_g, delta)}
     log("train reference check (card vs CPU, 64x64 spp 2 fp32): " + json.dumps(res))
     fails = ["loss"] if res["loss_rel"] > 1e-3 else []
@@ -710,6 +853,25 @@ def check_train_reference(v_small, f_small, vs_dev, seed, dev):
     return res
 
 
+def plant_k4_fault(kind: str):
+    """Wrap K4's launch: 'scale' multiplies every update by 1.01, 'drop'
+    skips the first of every three launches (one encode's backward a
+    step)."""
+    from mirres_restir_nerf_mesh_torch.ops import scatter
+
+    orig = scatter.scatter_add_into
+    calls = [0]
+
+    def faulty(out, idx, upd):
+        calls[0] += 1
+        if kind == "scale":
+            orig(out, idx, upd * 1.01)
+        elif calls[0] % 3 != 1:
+            orig(out, idx, upd)
+
+    scatter.scatter_add_into = faulty
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -718,7 +880,11 @@ def main(argv=None) -> int:
                          "reference-check frames (default: none written)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one bench frame and one train step (torch.profiler) "
-                         "after their main-path runs")
+                         "after their main-path runs (the profiler leaves every later launch "
+                         "costlier on the host: the phases after the first profile time slower)")
+    ap.add_argument("--plant-k4-fault", choices=("scale", "drop"), default=None,
+                    help="run phase 5b alone with a fault planted in K4 (updates x 1.01, or "
+                         "one launch of three dropped); exit 0 only if the phase fails")
     args = ap.parse_args(argv)
 
     import torch
@@ -754,6 +920,18 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
+
+    if args.plant_k4_fault:
+        v_small, f_small = bench_mesh(SMALL_FACES)
+        plant_k4_fault(args.plant_k4_fault)
+        try:
+            check_train_reference(v_small, f_small, torch.as_tensor(v_small, device=dev),
+                                  args.seed, dev)
+        except AssertionError as e:
+            log(f"planted K4 fault '{args.plant_k4_fault}' caught by phase 5b: {e}")
+            return 0
+        log(f"planted K4 fault '{args.plant_k4_fault}' passed phase 5b")
+        return 1
 
     # ---- meshes, cameras, weights
     t0 = time.perf_counter()
@@ -1042,14 +1220,16 @@ def main(argv=None) -> int:
              replaces="mirres_restir_nerf_mesh_tpu/ops/tile_tracer.py:190",
              **by_path("queue_trace"),
              max_abs_err=max(c["max_abs_err"] for c in k1_checks),
-             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             ms=k1["ms"], device_ms=k1["device_ms"], split=k1["split"],
+             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None, checks=k1_checks),
         dict(name="grid_trace (K2)", route="cuda",
              source="mirres_restir_nerf_mesh_torch/csrc/tile_trace.cu",
              replaces="mirres_restir_nerf_mesh_tpu/ops/tile_tracer.py:62",
              **by_path("grid_trace"),
              max_abs_err=max(c["max_abs_err"] for c in k2_checks),
-             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             ms=k2["ms"], device_ms=k2["device_ms"], split=k2["split"],
+             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None, checks=k2_checks),
         dict(name="dense_hit (K3)", route="cuda",
              source="mirres_restir_nerf_mesh_torch/csrc/dense_hit.cu",
@@ -1061,8 +1241,9 @@ def main(argv=None) -> int:
              source="mirres_restir_nerf_mesh_torch/csrc/scatter_add.cu",
              replaces="mirres_restir_nerf_mesh_tpu/ops/pallas_scatter.py:37",
              **by_path("scatter_add"), max_abs_err=k4["max_abs_err"],
-             ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
-             bound_by=k4["bound_by"], library_ms=k4["library_ms"], checks=[k4]),
+             ms=k4["ms"], device_ms=k4["device_ms"], plain_ms=k4["plain_ms"],
+             bound_ms=k4["bound_ms"], bound_by=k4["bound_by"], library_ms=k4["library_ms"],
+             library_device_ms=k4["library_device_ms"], checks=[k4]),
     ]
     if out_dir is not None:
         (out_dir / "chip_smoke.json").write_text(json.dumps(

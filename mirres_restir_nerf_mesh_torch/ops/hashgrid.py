@@ -114,7 +114,8 @@ class GatherRows(torch.autograd.Function):
     """table [R, C], idx [...] int32 absolute row ids -> table[idx] [..., C]
     (counterpart of the reference's ``_gather_rows_multi``).  Saves only the
     index; the backward scatter-adds the incoming gradient into a zeroed
-    [R, C] table with ``scatter_add`` (K4 on the card)."""
+    [R, C] table with ``scatter_add`` (K4 on the card), passing the index's
+    [points, columns] layout."""
 
     @staticmethod
     def forward(ctx, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -127,7 +128,9 @@ class GatherRows(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
             return None, None
-        return scatter_add(idx.reshape(-1), g.reshape(-1, g.shape[-1]), ctx.n_rows), None
+        # [points, columns]: K4 groups equal rows of one column (one level's corner)
+        cols = idx.reshape(-1, idx.shape[-1]) if idx.dim() >= 2 else idx
+        return scatter_add(cols, g.reshape(*cols.shape, g.shape[-1]), ctx.n_rows), None
 
 
 def encode_rows(x: torch.Tensor, spec: HashGridSpec, bound: float = 1.0,

@@ -14,34 +14,51 @@ computes the fp32 sum that the reference's CPU path (``.at[].add``) gives.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+
+from ..cuda_build import check, stream_ptr
 
 _VP = ctypes.c_void_p
 
 
 def scatter_add_plain(idx: torch.Tensor, upd: torch.Tensor, table_rows: int) -> torch.Tensor:
     """Plain PyTorch version of K4: zeros [table_rows, C] + index_add_ of the
-    rows whose index lies in [0, table_rows)."""
+    rows whose index lies in [0, table_rows).  idx [M] or [N, Kc] (then
+    upd [N, Kc, C] or [N * Kc, C])."""
+    idx = idx.reshape(-1)
+    upd = upd.reshape(idx.shape[0], upd.shape[-1])
     keep = (idx >= 0) & (idx < table_rows)
     out = torch.zeros((table_rows, upd.shape[1]), dtype=upd.dtype, device=upd.device)
     return out.index_add_(0, idx[keep].long(), upd[keep])
 
 
-def _bind(lib):
-    fn = lib.scatter_add_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [_VP, _VP, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP, _VP]
-    return fn
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The bound C entries (launch, shared-memory size), bound once."""
+    from ..cuda_build import load
+
+    lib = load("scatter_add")
+    launch = lib.scatter_add_launch
+    launch.restype = ctypes.c_int
+    launch.argtypes = [_VP, _VP, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       _VP, _VP]
+    smem = lib.scatter_add_smem
+    smem.restype = ctypes.c_longlong
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    return launch, smem
 
 
 def _check_inputs(idx, upd, table_rows):
     if idx.device != upd.device:
         raise ValueError(f"scatter_add: idx on {idx.device}, upd on {upd.device}")
-    if idx.dtype != torch.int32 or idx.dim() != 1:
-        raise TypeError(f"scatter_add: idx must be [M] int32, got {idx.dtype} {tuple(idx.shape)}")
-    if upd.dim() != 2 or upd.shape[0] != idx.shape[0]:
-        raise ValueError(f"scatter_add: upd must be [M, C] with M = {idx.shape[0]}, "
+    if idx.dtype != torch.int32 or idx.dim() not in (1, 2):
+        raise TypeError(f"scatter_add: idx must be [M] or [N, Kc] int32, got {idx.dtype} "
+                        f"{tuple(idx.shape)}")
+    if upd.dim() not in (2, 3) or upd.shape[:-1].numel() != idx.numel() or \
+            (upd.dim() == 3 and upd.shape[:2] != idx.shape):
+        raise ValueError(f"scatter_add: upd must be [M, C] (or [N, Kc, C]) with M = {idx.numel()}, "
                          f"got {tuple(upd.shape)}")
     if not upd.is_floating_point():
         raise TypeError(f"scatter_add: upd must be floating point, got {upd.dtype}")
@@ -51,23 +68,41 @@ def _check_inputs(idx, upd, table_rows):
         raise ValueError(f"scatter_add: table_rows {table_rows} out of the int32 range")
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous with a 16-byte aligned start (the kernel's vector loads)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def scatter_add_into(out: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor) -> None:
+    """Launch K4 on the card: out [rows, C] += the updates (no zeroing, no
+    counting; ``scatter_add`` is the entry point).  idx [M] or [N, Kc]:
+    with the column layout a warp groups equal rows of one column."""
+    launch, smem = _kernel()
+    C = upd.shape[-1]
+    Kc = idx.shape[1] if idx.dim() == 2 else 1
+    if smem(Kc, C) == 0:     # too wide for one block: the 1-D layout
+        Kc = 1
+    if smem(Kc, C) == 0:
+        raise ValueError(f"scatter_add: {C} channels do not fit the kernel's block")
+    N = idx.numel() // Kc
+    idx, upd = _aligned(idx), _aligned(upd)
+    if N and out.shape[0]:
+        check(launch(idx.data_ptr(), upd.data_ptr(), N, Kc, C, out.shape[0], out.data_ptr(),
+                     stream_ptr(upd.device)), "scatter_add")
+
+
 def scatter_add(idx: torch.Tensor, upd: torch.Tensor, table_rows: int) -> torch.Tensor:
     """idx [M] int32 (-1 = padding), upd [M, C] -> [table_rows, C], zero
-    where no update lands."""
+    where no update lands.  idx may also come as [N, Kc] (an encode's
+    points x columns, upd [N, Kc, C] or [N * Kc, C]): the kernel then
+    groups equal rows column by column."""
     _check_inputs(idx, upd, table_rows)
     if not upd.is_cuda:
         return scatter_add_plain(idx, upd, table_rows)
-    from ..cuda_build import check, load, stream_ptr
-
-    idx, upd = idx.contiguous(), upd.contiguous()
-    if upd.data_ptr() % 8:      # the kernel reads a row of two as one float2
-        upd = upd.clone()
-    M, C = upd.shape
-    out = torch.zeros((table_rows, C), dtype=torch.float32, device=upd.device)
-    if M and table_rows:
-        launch = _bind(load("scatter_add"))
-        check(launch(idx.data_ptr(), upd.data_ptr(), M, table_rows, C, out.data_ptr(),
-                     stream_ptr(upd.device)), "scatter_add")
+    out = torch.zeros((table_rows, upd.shape[-1]), dtype=torch.float32, device=upd.device)
+    if idx.numel() and table_rows:
+        scatter_add_into(out, idx, upd)
         scatter_add.launches += 1
     return out
 

@@ -22,6 +22,7 @@ chunks only to fit its scalar tables into the TPU's SMEM; one launch here.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -212,11 +213,19 @@ def queue_trace_plain(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_
     first-slot tie rule.  Returns out [T,5,R] rows (t, slot, u, v, cluster).
     stats, when given, accumulates the (ray, cluster) pairs that ran the
     triangle tests ('useful_pairs') and the (tile, candidate) items."""
+    return _trace_plain(geom_cm, rays_cm, cand, octs, n_active, t_min, any_hit, stats)[0]
+
+
+def _trace_plain(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_hit: bool,
+                 stats: Optional[dict] = None):
+    """queue_trace_plain -> (out [T,5,R], k [T,R] candidate position of each
+    closest hit, 0 where none)."""
     T_, _, R = rays_cm.shape
     S = geom_cm.shape[2]
     dev = rays_cm.device
     out = torch.zeros((T_, 5, R), dtype=torch.float32, device=dev)
     out[:, 0] = BIG
+    kpos = torch.zeros((T_, R), dtype=torch.int64, device=dev)
     tile_chunk = max(1, (1 << 24) // (S * R))   # tiles per pass: [t, S, R] temporaries
     ar_s = torch.arange(S, device=dev)[:, None]
     for c0 in range(0, T_, tile_chunk):
@@ -234,6 +243,7 @@ def queue_trace_plain(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_
         bu = out[c0:c1, 2].clone()
         bv = out[c0:c1, 3].clone()
         bcid = out[c0:c1, 4].clone()
+        bk = kpos[c0:c1].clone()
         na = n_active[c0:c1]
         for k in range(int(na.max()) if na.numel() else 0):
             tiles = torch.nonzero(na > k)[:, 0]
@@ -299,55 +309,109 @@ def queue_trace_plain(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_
             bu[tiles] = torch.where(better, u_best, bu[tiles])
             bv[tiles] = torch.where(better, v_best, bv[tiles])
             bcid[tiles] = torch.where(better, cid[run].float()[:, None], bcid[tiles])
+            bk[tiles] = torch.where(better, k, bk[tiles])
         out[c0:c1, 0], out[c0:c1, 1], out[c0:c1, 2] = best, slot, bu
         out[c0:c1, 3], out[c0:c1, 4] = bv, bcid
-    return out
+        kpos[c0:c1] = bk
+    return out, kpos
 
 
-def _bind(lib):
-    fn = lib.tile_trace_launch
+def split_factor(n_tiles: int, n_sms: int) -> int:
+    """Blocks the kernel gives each tile: enough for two per SM,
+    ceil(2 SMs / T), clamped to 1..8."""
+    return max(1, min(8, -(-2 * n_sms // max(n_tiles, 1))))
+
+
+def queue_trace_split_plain(geom_cm, rays_cm, cand, octs, n_active, t_min: float,
+                            any_hit: bool, split: int):
+    """The kernel's split and combine rule in plain PyTorch: part p of
+    `split` walks candidates k = p, p + split, ... of each tile against its
+    own best only, and the parts combine by the smallest (t, k, slot), which
+    is queue_trace_plain's answer (earlier candidate first on equal t; the
+    slot is the cluster's first minimal one).  -> out [T,5,R]."""
+    best = kbest = None
+    for p in range(split):
+        n_p = torch.clamp_min(n_active - p + split - 1, 0) // split
+        out, kpos = _trace_plain(geom_cm, rays_cm, cand[:, p::split], octs[:, p::split], n_p,
+                                 t_min, any_hit)
+        kabs = p + kpos * split
+        if best is None:
+            best, kbest = out, kabs
+            continue
+        t_new, t_old = out[:, 0], best[:, 0]
+        better = (t_new < t_old) | ((t_new == t_old) & (t_new < BIG) & (kabs < kbest))
+        best = torch.where(better[:, None, :], out, best)
+        kbest = torch.where(better, kabs, kbest)
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The bound C entry of csrc/tile_trace.cu, bound once."""
+    from ..cuda_build import load
+
+    fn = load("tile_trace").tile_trace_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, _VP]
+    fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _VP]
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dtype == torch.int32 and x.is_contiguous() else x.to(torch.int32).contiguous()
+
+
 def _launch(what: str, geom_cm, rays_cm, cand, octs, n_run, t_min: float,
-            any_hit: bool) -> torch.Tensor:
+            any_hit: bool, split: Optional[int]) -> torch.Tensor:
     """Check the card's inputs and launch csrc/tile_trace.cu's kernel on each
-    tile's first n_run candidates -> out [T,5,R] (`what` names the caller in
-    errors)."""
-    from ..cuda_build import check, load, stream_ptr
+    tile's first n_run candidates, each tile split over `split` blocks
+    (None: split_factor of the card's SM count) -> out [T,5,R] (`what`
+    names the caller in errors)."""
+    from ..cuda_build import check, stream_ptr
 
     dev = geom_cm.device
-    cand = cand.to(torch.int32).contiguous()
-    octs = octs.to(torch.int32).contiguous()
-    n_run = n_run.to(torch.int32).contiguous()
+    cand, octs, n_run = _int32(cand), _int32(octs), _int32(n_run)
     for name, x, dt in (("geom_cm", geom_cm, torch.float32), ("rays_cm", rays_cm, torch.float32)):
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous {dt} tensor on {dev}")
     T_, rows, R = rays_cm.shape
     C, grows, S = geom_cm.shape
-    if rows != 8 or grows != 16 or R > 1024 or cand.shape != octs.shape or cand.shape[0] != T_:
-        raise ValueError(f"{what}: expects rays [T,8,R<=1024], geom [C,16,S], cand/octs [T,K]")
+    if rows != 8 or grows != 16 or R > 1024 or R % 32 or S % 32 or cand.shape != octs.shape \
+            or cand.shape[0] != T_:
+        raise ValueError(f"{what}: expects rays [T,8,R<=1024], geom [C,16,S], cand/octs [T,K], "
+                         "R and S multiples of 32")
     if cand.device != dev or n_run.device != dev:
         raise ValueError(f"{what}: candidate tables must lie on the card")
+    if geom_cm.data_ptr() % 16:
+        raise ValueError(f"{what}: geom_cm must start on a 16-byte boundary (cp.async)")
     out = torch.empty((T_, 5, R), dtype=torch.float32, device=dev)
     if not T_:
         return out
-    fn = _bind(load("tile_trace"))
-    check(fn(geom_cm.data_ptr(), rays_cm.data_ptr(), cand.data_ptr(), octs.data_ptr(),
-             n_run.data_ptr(), out.data_ptr(), T_, cand.shape[1], S, R, t_min, int(any_hit),
-             stream_ptr(dev)), what)
+    if split is None:
+        split = split_factor(T_, _sm_count(dev.index if dev.index is not None
+                                           else torch.cuda.current_device()))
+    if not 1 <= split <= 64:
+        raise ValueError(f"{what}: split {split} outside 1..64")
+    keys = torch.empty((T_, R) if split > 1 else (0,), dtype=torch.int64, device=dev)
+    check(_kernel()(geom_cm.data_ptr(), rays_cm.data_ptr(), cand.data_ptr(), octs.data_ptr(),
+                    n_run.data_ptr(), out.data_ptr(), keys.data_ptr(), T_, cand.shape[1], S, R,
+                    split, t_min, int(any_hit), stream_ptr(dev)), what)
     return out
 
 
-def queue_trace(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_hit: bool):
+def queue_trace(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_hit: bool,
+                split: Optional[int] = None):
     """Run each tile's first n_active candidates: the K1 kernel for tensors on
-    the card, queue_trace_plain for tensors on the CPU -> out [T,5,R]."""
+    the card (each tile over `split` blocks, None = from the SM count),
+    queue_trace_plain for tensors on the CPU -> out [T,5,R]."""
     if not geom_cm.is_cuda:
         return queue_trace_plain(geom_cm, rays_cm, cand, octs, n_active, t_min, any_hit)
-    out = _launch("queue_trace", geom_cm, rays_cm, cand, octs, n_active, t_min, any_hit)
+    out = _launch("queue_trace", geom_cm, rays_cm, cand, octs, n_active, t_min, any_hit, split)
     if rays_cm.shape[0]:
         queue_trace.launches += 1
     return out
@@ -356,13 +420,14 @@ def queue_trace(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_hit: b
 queue_trace.launches = 0
 
 
-def grid_trace(geom_cm, rays_cm, cand, octs, counts, t_min: float, any_hit: bool):
+def grid_trace(geom_cm, rays_cm, cand, octs, counts, t_min: float, any_hit: bool,
+               split: Optional[int] = None):
     """Run each tile's first counts candidates, no work budget: the K2
     kernel for tensors on the card, queue_trace_plain (called with counts)
     for tensors on the CPU -> out [T,5,R]."""
     if not geom_cm.is_cuda:
         return queue_trace_plain(geom_cm, rays_cm, cand, octs, counts, t_min, any_hit)
-    out = _launch("grid_trace", geom_cm, rays_cm, cand, octs, counts, t_min, any_hit)
+    out = _launch("grid_trace", geom_cm, rays_cm, cand, octs, counts, t_min, any_hit, split)
     if rays_cm.shape[0]:
         grid_trace.launches += 1
     return out

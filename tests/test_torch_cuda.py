@@ -1,6 +1,8 @@
-"""On the card only: the CUDA kernels K1 and K2 (csrc/tile_trace.cu), K3
-(csrc/dense_hit.cu) and K4 (csrc/scatter_add.cu) against their plain
-PyTorch versions on the same inputs, and the launch counters.  Skipped without a CUDA device.  On a
+"""On the card only: the CUDA kernels K1 and K2 (csrc/tile_trace.cu, with
+the tile split forced off and on), K3 (csrc/dense_hit.cu) and K4
+(csrc/scatter_add.cu, its 1-D and [N, Kc] entries and a contention-heavy
+input) against their plain PyTorch versions on the same inputs, and the
+launch counters.  Skipped without a CUDA device.  On a
 machine with the card and without JAX, run them without the suite's
 conftest (which imports JAX):
 `python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider`.
@@ -96,6 +98,62 @@ def test_grid_trace_kernel_matches_plain(dev, any_hit):
         torch.testing.assert_close(getattr(hk.hit, f)[m], getattr(hp.hit, f)[m], rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tile_trace_kernel_split_rows_equal_plain(dev, split, any_hit):
+    """K1 with the tile split forced off (1) and on (4 blocks a tile, the
+    keyed combine and the finish kernel): rows equal the plain version's."""
+    v, tr = bumpy_sphere(48, 96)
+    cm = cluster_bvh.build_clusters(torch.from_numpy(v).to(dev), torch.from_numpy(tr).to(dev))
+    o, d = shell_rays(6000, seed=7)
+    work = tile_tracer.prepare_trace(cm, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                                     k_cap=32, sort_octants="morton")
+    args = (cm.geom_cm, work.rays_cm, work.cand, work.octs, work.n_active, 1e-4, any_hit)
+    before = tile_tracer.queue_trace.launches
+    out_k = tile_tracer.queue_trace(*args, split=split)
+    torch.cuda.synchronize()
+    assert tile_tracer.queue_trace.launches == before + 1
+    assert torch.equal(out_k, tile_tracer.queue_trace_plain(*args))
+
+
+def scatter_within(k, idx, upd, rows):
+    p = scatter.scatter_add_plain(idx, upd, rows)
+    mag = scatter.scatter_add_plain(idx, upd.abs(), rows)
+    return bool(((k - p).abs() <= 1e-5 * mag + 1e-30).all())
+
+
+def test_scatter_add_kernel_contention(dev):
+    """Every update into 8 rows: long groups in every warp and every block."""
+    rng = np.random.RandomState(6)
+    idx = torch.from_numpy(rng.randint(0, 8, (20_000, 128)).astype(np.int32)).to(dev)
+    upd = torch.from_numpy(rng.normal(size=(20_000, 128, 2)).astype(np.float32)).to(dev)
+    k = scatter.scatter_add(idx, upd, 8)
+    torch.cuda.synchronize()
+    assert scatter_within(k, idx, upd, 8)
+
+
+@pytest.mark.parametrize("cols,C", [(128, 2), (16, 2), (3, 2), (8, 3)])
+def test_scatter_add_kernel_2d_entry(dev, cols, C):
+    """The [N, Kc] entry (Kc = 8L exact, L stochastic, an odd width, and
+    the scalar path of C != 2): coarse columns repeat rows, the rest are
+    spread; padding and rows out of range are dropped."""
+    rng = np.random.RandomState(cols)
+    N, rows = 3001, 50_000
+    idx = rng.randint(0, rows, (N, cols)).astype(np.int32)
+    idx[:, : cols // 4] = rng.randint(0, 40, (N, cols // 4))
+    idx[rng.rand(N, cols) < 0.05] = -1
+    idx[0, 0] = rows + 3
+    idx_d = torch.from_numpy(idx).to(dev)
+    upd = torch.from_numpy(rng.normal(size=(N, cols, C)).astype(np.float32)).to(dev)
+    before = scatter.scatter_add.launches
+    k = scatter.scatter_add(idx_d, upd, rows)
+    torch.cuda.synchronize()
+    assert scatter.scatter_add.launches == before + 1
+    assert scatter_within(k, idx_d, upd, rows)
+    flat = scatter.scatter_add(idx_d.reshape(-1), upd.reshape(-1, C), rows)
+    assert scatter_within(flat, idx_d, upd, rows)
+
+
 def test_scatter_add_kernel_matches_plain(dev):
     rng = np.random.RandomState(4)
     rows, M = 70_000, 400_000
@@ -108,9 +166,7 @@ def test_scatter_add_kernel_matches_plain(dev):
     k = scatter.scatter_add(idx_d, upd, rows)
     torch.cuda.synchronize()
     assert scatter.scatter_add.launches == before + 1
-    p = scatter.scatter_add_plain(idx_d, upd, rows)
-    mag = scatter.scatter_add_plain(idx_d, upd.abs(), rows)
-    assert bool(((k - p).abs() <= 1e-5 * mag + 1e-30).all())
+    assert scatter_within(k, idx_d, upd, rows)
 
 
 def test_gather_rows_backward_launches_k4(dev):
