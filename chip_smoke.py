@@ -3,6 +3,7 @@
 with and without ReSTIR DI, on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
+    python3 chip_smoke.py --k3-route    (the dense route alone; see k3_route)
 
 Phases (any failure exits non-zero):
 
@@ -11,8 +12,21 @@ Phases (any failure exits non-zero):
    (one nvcc per source, started together); print the build seconds and
    ptxas' register / shared-memory report.
 3. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the frame, and time both with CUDA events (median):
-   K3 (dense hit) on a ~6k-triangle mesh; K1 (tile tracer) closest hit on the
+   shapes of the frame, and time both with CUDA events (median).
+   K3 (dense tracer, the route of meshes of at most 8192 padded triangle
+   slots) on the 6,000-triangle small mesh, at the launches of its frames,
+   the rays in the route's order (incoherent batches of at least 65,536
+   rays sorted by octant and origin, as Tracer asks): closest hit on the 65,536 primary rays and on a
+   1M-ray bounce-shaped batch; any hit on that batch (t_max 1e9), on one
+   spp's direct-shadow batch (dead lanes included) and on one spatial
+   cross-visibility launch recorded from the small-mesh ReSTIR frame (t_max
+   per ray); closest and any hit on a ragged batch (50,001 rays; 61
+   clusters of 99, so M is no multiple of the staged block and its rows do
+   not start on 16 bytes).  Each at the wrapper's split and unsplit: rows
+   (t, index, u, v) or the mask equal to the plain version's bit for bit;
+   event, device (queued) and host ms, the bound, the --fmad=false issue
+   floor of the same operations, the occluded share and the dead lanes.
+   K1 (tile tracer) closest hit on the
    65,536 primary rays of the ~100k-triangle bench mesh, closest and any
    hit on a 1M-ray bounce-shaped batch (surface origins, cosine directions,
    "morton" sort, k_cap 640, queue_avg 64), and any hit on one spp's
@@ -49,9 +63,12 @@ Phases (any failure exits non-zero):
 4. The main path: the launch counters are zeroed, then ``render_stage1``
    (use_restir=False) renders bench.py's operating point (256x256, spp 32,
    2 bounces, ~100k triangles, k_cap 640, queue_avg 256/64, bf16 MLPs) once
-   warm and three times timed, and a ~6k-triangle mesh frame (dense path)
-   once; the counters are read right after.  Outputs must be finite,
-   uncertain_count 0, and both kernels launched.
+   warm and three times timed; the counters are read right after.  Then,
+   counters zeroed again, the same frame of the 6,000-triangle small mesh
+   (the dense route), one warm and three timed.  Outputs must be finite,
+   uncertain_count 0, K1 launched on the bench mesh, and on the small mesh
+   K3 alone: 3 closest-hit (primary, 2 bounces) and 66 any-hit (2 NEE, 64
+   direct shadows) launches a frame.
 4b. The lighter train step (the counters zeroed again): bench.py's
    train-step config with use_restir=False and denoise_iters=0, on the
    bench frame's pixels and alpha and its sky + sun env, one warm and three
@@ -69,6 +86,11 @@ Phases (any failure exits non-zero):
 4d. bench.py's own train step with that static (the counters zeroed
    again): one warm and three timed steps, loss, peak memory, K4 launched
    3 times and K1 37 times a step, uncertain_count 0.
+4e. bench.py's ReSTIR frame (use_restir=True, denoise_iters=4) on the small
+   mesh (the counters zeroed again): one warm and three timed frames, frame
+   s and coverage; uncertain_count 0 and K3 alone, 3 closest-hit and 34
+   any-hit (2 NEE with the initial visibility fused in, 32 spatial cross
+   visibility) launches a frame.
 5. Reference check: a 64x64, spp-2 frame of the small mesh in fp32 on the
    card against the same frame on the CPU (the plain versions, which the
    CPU tests hold against the JAX package), same weights and randoms.
@@ -95,13 +117,15 @@ Phases (any failure exits non-zero):
    means within 1e-2 relative.  The per-pixel agreement share of each
    Monte Carlo buffer is printed: spatial reuse and the denoiser carry a
    sampling decision that differs on the card to neighbouring pixels.
-6. Print the kernel table as one JSON line, the card line, and as the last
-   line {"ok": true, "device": {...}}.
+6. Print the kernel table as one JSON line (K1, K2, K3 closest hit, K3 any
+   hit, K4), the card line, and as the last line {"ok": true, "device":
+   {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import statistics
@@ -117,6 +141,18 @@ FP32_FLOP_PER_S = 67e12
 # 1 reciprocal, 3 tvec, 6 u, 9 qvec, 6 v, 6 t) and of one ray/box slab test
 MT_FLOPS = 45
 SLAB_FLOPS = 22
+# the part of a Moeller-Trumbore test that K3 runs before its first cull can
+# drop it (9 cross, 5 det, 3 tvec, 5 u numerator)
+MT_CULL_FLOPS = 22
+# fp32 operations of K3's warp-bundle test of one group of 4 triangles
+# (csrc/dense_hit.cu group_maybe) up to its distance cut: the group's box
+# (4 x (6 adds + 18 min/max)) and the ball, margin and limit test (44); the
+# cone test after it is not counted
+GROUP_FLOPS = 140
+# the issue rate of one fp32 operation per instruction (code built with
+# --fmad=false): 128 fp32 lanes per SM at the H100 SXM's 1.98 GHz boost clock
+FP32_LANES_PER_SM = 128
+SM_CLOCK_HZ = 1.98e9
 
 PRIM_AGREE = 0.9999
 RTOL = 1e-5
@@ -137,6 +173,11 @@ RESTIR = dict(use_restir=True, restir_tiles=128, restir_tile_size=1024, restir_l
               restir_brdf_samples=1, restir_neighbors=5, restir_radius=30.0, restir_offsets=8192,
               denoise_iters=4)
 RESTIR_RAYS_PER_SPP = 1 + 2 * 5 + 1 + 2 * 2
+# K3 launches a small-mesh frame (closest, any hit): primary + 2 bounces;
+# lighter: 2 NEE + 32 spp x 2 direct shadows, ReSTIR: 2 NEE (initial
+# visibility fused in) + 32 spatial cross visibility
+K3_FRAME = (3, 2 + 2 * FRAME_SPP)
+K3_RESTIR_FRAME = (3, 2 + FRAME_SPP)
 
 
 def log(*a):
@@ -282,31 +323,107 @@ def hit_agreement(name, hk, hp, unc_k=None, unc_p=None):
     return agree, err
 
 
-def check_dense(cm_small, rays_o, rays_d):
-    """K3 against its plain version on the primary rays of the small mesh."""
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (floats compared as their int32 bits: -0 is not +0)."""
+    import torch
+
+    def raw(x):
+        return x.view(torch.int32) if x.is_floating_point() else x
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(raw(a), raw(b))
+
+
+def check_k3(name, cm, rays_o, rays_d, t_max=None, sort=False):
+    """K3 against its plain version on one launch of the dense route: the
+    rays in the route's order (``dense_order``; sort = the route's
+    sort_octants), closest hit (t_max None) or any hit below t_max.  At the
+    wrapper's split and, where that is not 1, unsplit: rows (t, index, u,
+    v) or the mask equal to the plain version's bit for bit.  Times: event
+    ms of the wrapper call, its device ms (queued_ms) and host ms; event and
+    device ms unsplit.  Bound: the work the kernel cannot skip on this
+    run's data, from the plain mirror of its warp-bundle cull
+    (``bundle_keep_plain``) at the least limit a ray can reach (closest:
+    its hit's t, for every ray; any hit: t_max, for the live rays left
+    unoccluded): MT_CULL_FLOPS (the operations before its first cull) per
+    (ray, triangle) test of a group a warp keeps, one test per occluded
+    ray, the rest of a full test (45 operations) per hit, and GROUP_FLOPS
+    per group test of a warp that culls, against 67 TFLOP/s; beside it the issue floor of the
+    same operations as single instructions (``--fmad=false``) on 128 fp32
+    lanes per SM, and, as a label, the bound of the uncut work (every live
+    triangle of every ray the unculled kernel would test)."""
     import torch
 
     from mirres_restir_nerf_mesh_torch.ops import dense_tracer as dt
-    from mirres_restir_nerf_mesh_torch.ops.bvh import HitResult
+    from mirres_restir_nerf_mesh_torch.ops import tile_tracer as tt
 
-    tris_cm = dt.tris_cm_from_soa(cm_small.soa)
-    d = rays_d / rays_d.norm(dim=-1, keepdim=True)
-    k = dt.dense_hit(tris_cm, rays_o, d)
+    tris = cm.soa
+    any_hit = t_max is not None
+    ro, rd, tm, _ = tt.dense_order(cm, rays_o, rays_d, 1e10 if t_max is None else t_max, sort)
+    N, Mcols = ro.shape[0], tris.shape[1]
+    M = int((tris[9] >= 0).sum())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_blk = -(-Mcols // dt.KERNEL_BM)
+    auto = dt.split_factor(-(-N // dt.THREADS), sms, n_blk)
+    if any_hit:
+        def run(split=None):
+            return dt.dense_occluded(tris, ro, rd, tm, split=split)
+
+        p = dt.dense_occluded_plain(tris, ro, rd, tm)
+    else:
+        def run(split=None):
+            return dt.dense_hit(tris, ro, rd, split=split)
+
+        p = dt.dense_hit_plain(tris, ro, rd)
     torch.cuda.synchronize()
-    p = dt.dense_hit_plain(tris_cm, rays_o, d)
-
-    def hr(x):
-        z = torch.zeros_like(x[0])
-        return HitResult(t=x[0], prim=x[1], u=x[2], v=x[3], normal=z)
-
-    agree, err = hit_agreement("K3 dense_hit", hr(k), hr(p))
-    ms = cuda_ms(lambda: dt.dense_hit(tris_cm, rays_o, d), 10)
-    plain_ms = cuda_ms(lambda: dt.dense_hit_plain(tris_cm, rays_o, d), 3, warm=False)
-    N, M = rays_o.shape[0], int((cm_small.soa[9] >= 0).sum())
-    flops = N * M * MT_FLOPS
-    nbytes = 10 * tris_cm.shape[1] * 4 + N * 6 * 4 + N * 4 * 4
-    return dict(shape=f"{N} rays x {M} triangles", prim_agree=agree, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, **bound(flops, nbytes))
+    splits = [auto] + ([1] if auto != 1 else [])
+    for sp in splits:
+        k = run(sp)
+        torch.cuda.synchronize()
+        pairs = [(k, p)] if any_hit else list(zip(k, p))
+        bad = [i for i, (a, b) in enumerate(pairs) if not same_bits(a, b)]
+        if bad:
+            raise AssertionError(f"{name} (split {sp}): rows {bad} differ from the plain "
+                                 "version's")
+    res = dict(shape=f"{N} rays x {M} triangles ({Mcols} slots)", any_hit=any_hit,
+               sort=str(sort), split=auto, splits_checked=splits, rows_equal=True,
+               max_abs_err=0.0,
+               ms=cuda_ms(run, 10), device_ms=queued_ms(run), host_ms=host_ms(run))
+    if auto != 1:
+        res["ms_split_1"] = cuda_ms(lambda: run(1), 10)
+        res["device_ms_split_1"] = queued_ms(lambda: run(1))
+    plain = (lambda: dt.dense_occluded_plain(tris, ro, rd, tm)) if any_hit else \
+        (lambda: dt.dense_hit_plain(tris, ro, rd))
+    res["plain_ms"] = cuda_ms(plain, 2, warm=False)
+    live = tm > 1e-4
+    if any_hit:
+        # the bundles of the live rays left unoccluded, up to their t_max;
+        # an occluded ray takes at least one test
+        keep, culls = dt.bundle_keep_plain(tris, ro, rd, tm, live & ~p)
+        rays = live & ~p
+        occ = int(p.sum())
+        hits, uncut = occ, (int(live.sum()) - occ) * M + occ
+        res.update(live=int(live.sum()), dead=N - int(live.sum()), occluded=occ,
+                   occluded_share=occ / max(int(live.sum()), 1))
+        nbytes = 10 * Mcols * 4 + N * 7 * 4 + N
+    else:
+        # the bundles of all rays, up to their closest hit
+        keep, culls = dt.bundle_keep_plain(tris, ro, rd, p[0])
+        rays = torch.ones((N,), dtype=torch.bool, device=ro.device)
+        hits, uncut = int((p[1] >= 0).sum()), N * M
+        res["hit_share"] = hits / N
+        nbytes = 10 * Mcols * 4 + N * 6 * 4 + N * 4 * 4
+    W, G = keep.shape
+    per_warp = torch.cat([rays, rays.new_zeros(32 * W - N)]).reshape(W, 32).sum(1)
+    real = torch.cat([tris[9] >= 0, torch.zeros(4 * G - Mcols, dtype=torch.bool,
+                                                 device=ro.device)]).reshape(G, 4).sum(1)
+    tests = int(((keep.double() @ real.double()) * per_warp).sum()) + (hits if any_hit else 0)
+    group_tests = int(((per_warp > 0) & culls).sum()) * G
+    flops = tests * MT_CULL_FLOPS + hits * (MT_FLOPS - MT_CULL_FLOPS) + group_tests * GROUP_FLOPS
+    res.update(tests=tests, group_tests=group_tests, kept_share=tests / max(uncut, 1),
+               issue_floor_ms=flops / (sms * FP32_LANES_PER_SM * SM_CLOCK_HZ) * 1e3,
+               **bound(flops, nbytes),
+               uncut_tests=uncut, uncut_bound_ms=uncut * MT_FLOPS / FP32_FLOP_PER_S * 1e3)
+    return res
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -688,7 +805,8 @@ RESTIR_RANGES = ("gbuffer", "fields", "restir_initial", "indirect", "restir_temp
 
 def profile_run(run, out_dir, ranges, table_name):
     """torch.profiler over one run(): device busy time (sum of kernel times)
-    against its wall time, the top kernels, and the device span of the
+    against its wall time, the top kernels, the device time of the kernels
+    named dense* (K3), and the device span of the
     given record_function ranges -> summary dict; the full table goes to
     out_dir/table_name when out_dir is given."""
     import torch
@@ -715,6 +833,8 @@ def profile_run(run, out_dir, ranges, table_name):
         (out_dir / table_name).write_text(ev.table(sort_by="self_device_time_total",
                                                    row_limit=60))
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            # K3: dense_hit_kernel and its finish kernel
+            "dense_kernels_device_ms": sum(v for k, v in kernels.items() if "dense" in k),
             "range_device_span_ms": {k: dev_ms.get(k, 0.0) for k in ranges},
             "top_kernels_ms": [[k[:80], v] for k, v in top]}
 
@@ -853,6 +973,99 @@ def check_train_reference(v_small, f_small, vs_dev, seed, dev):
     return res
 
 
+def check_k3_launches(name, launches, per_frame):
+    """A small-mesh run of one warm and TIMED_FRAMES timed frames: K3
+    closest and any hit launched per_frame times a frame, no K1 or K2."""
+    frames = 1 + TIMED_FRAMES
+    want = {"dense_hit": per_frame[0] * frames, "dense_occluded": per_frame[1] * frames,
+            "queue_trace": 0, "grid_trace": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+
+
+def k3_route(seed: int, dev) -> None:
+    """``--k3-route``: the dense route (K3) through the public entry points
+    only (``intersect_tiles_t`` / ``occluded_tiles_t`` with the frame's sort
+    mode, ``render_stage1``), so that this file, copied into an unpacked
+    older checkout of the port and run there, times that checkout's K3 the
+    same way.  Phase 3's K3 inputs from the same seeds; per shape the
+    route's event ms and device ms (queued_ms); the small mesh's lighter and
+    ReSTIR frames, one warm and TIMED_FRAMES timed (frame s, K3 launches a
+    frame); then, under torch.profiler (last: it makes later launches
+    costlier on the host), the device ms of the dense* kernels per route
+    call (mean of 5) and in one frame of each.  One JSON line each."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops import dense_tracer as dt
+    from mirres_restir_nerf_mesh_torch.ops import tile_tracer as tt
+    from mirres_restir_nerf_mesh_torch.ops.cluster_bvh import build_clusters
+    from mirres_restir_nerf_mesh_torch.render.stage1 import render_stage1
+
+    v, f = bench_mesh(SMALL_FACES)
+    vs, fs = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    cm = build_clusters(vs, fs)
+    cam = camera(FRAME_HW, FRAME_HW, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    params = make_params(v.shape[0], seed, dev)
+    statics = {"lighter": frame_static(f, FRAME_HW, FRAME_HW, FRAME_SPP, torch.bfloat16),
+               "restir": frame_static(f, FRAME_HW, FRAME_HW, FRAME_SPP, torch.bfloat16,
+                                      **RESTIR)}
+
+    def frame(st):
+        return render_stage1(params, st, vs, cam["rays_o"], cam["rays_d"], generator=gen)
+
+    d_prim = cam["rays_d"] / cam["rays_d"].norm(dim=-1, keepdim=True)
+    bo, bd = bounce_rays(vs, fs, BOUNCE_RAYS, gen)
+    so, sd, st_max = shadow_rays(vs, fs, cm, cam, sky_env(), gen)
+    calls = record_occluded(lambda: frame(statics["restir"]))
+    n_cross = 2 * RESTIR["restir_neighbors"] * int(so.shape[0])
+    xo, xd, xt = next(c for c in calls if c[0].shape[0] == n_cross)
+    del calls
+    routes = []
+    for name, o, d, t_max, sort in (("primary, closest", cam["rays_o"], d_prim, None, False),
+                                    ("bounce, closest", bo, bd, None, "morton"),
+                                    ("bounce, any", bo, bd, 1e9, "morton"),
+                                    ("direct shadow, any", so, sd, st_max, "morton"),
+                                    ("spatial cross visibility, any", xo, xd, xt, "morton")):
+        if t_max is None:
+            route = functools.partial(tt.intersect_tiles_t, cm, o, d, sort_octants=sort)
+            live = o.shape[0]
+        else:
+            route = functools.partial(tt.occluded_tiles_t, cm, o, d, t_max, sort_octants=sort)
+            live = int((torch.broadcast_to(torch.as_tensor(t_max, device=dev), (o.shape[0],))
+                        > 1e-4).sum())
+        routes.append((route, dict(shape=name, rays=int(o.shape[0]), live=live,
+                                   route_ms=cuda_ms(route, 10), route_device_ms=queued_ms(route))))
+    counters = [c for c in (getattr(dt, "dense_hit", None), getattr(dt, "dense_occluded", None))
+                if c is not None]
+    frames = {}
+    for name, st in statics.items():
+        for c in counters:
+            c.launches = 0
+        times = []
+        for _ in range(1 + TIMED_FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame(st)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        frames[name] = dict(frame=name, frame_s=float(statistics.median(times[1:])),
+                            frame_s_all=times,
+                            launches_per_frame={c.__name__: c.launches / len(times)
+                                                for c in counters})
+    for route, row in routes:
+        prof = profile_run(lambda: [route() for _ in range(5)], None, (), "")
+        row["dense_device_ms_per_call"] = prof["dense_kernels_device_ms"] / 5
+        log("K3 route: " + json.dumps(row))
+    for name, st in statics.items():
+        prof = profile_run(lambda: frame(st), None,
+                           RESTIR_RANGES if name == "restir" else FRAME_RANGES, "")
+        frames[name].update(dense_device_ms=prof["dense_kernels_device_ms"],
+                            device_busy_ms=prof["device_busy_ms"], profiled_wall_ms=prof["wall_ms"])
+        log("K3 frame: " + json.dumps(frames[name]))
+
+
 def plant_k4_fault(kind: str):
     """Wrap K4's launch: 'scale' multiplies every update by 1.01, 'drop'
     skips the first of every three launches (one encode's backward a
@@ -882,6 +1095,11 @@ def main(argv=None) -> int:
                     help="also profile one bench frame and one train step (torch.profiler) "
                          "after their main-path runs (the profiler leaves every later launch "
                          "costlier on the host: the phases after the first profile time slower)")
+    ap.add_argument("--k3-route", action="store_true",
+                    help="time only the dense route (K3) through the public entry points at "
+                         "phase 3's K3 shapes and the small-mesh frames, with its device time "
+                         "under torch.profiler, and exit (no result line); works on a copy "
+                         "of this file run in an older checkout of the port")
     ap.add_argument("--plant-k4-fault", choices=("scale", "drop"), default=None,
                     help="run phase 5b alone with a fault planted in K4 (updates x 1.01, or "
                          "one launch of three dropped); exit 0 only if the phase fails")
@@ -921,6 +1139,9 @@ def main(argv=None) -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
 
+    if args.k3_route:
+        k3_route(args.seed, dev)
+        return 0
     if args.plant_k4_fault:
         v_small, f_small = bench_mesh(SMALL_FACES)
         plant_k4_fault(args.plant_k4_fault)
@@ -949,9 +1170,37 @@ def main(argv=None) -> int:
 
     # ---- 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    k3 = check_dense(cm_small, cam["rays_o"], cam["rays_d"])
-    log("K3 dense_hit: " + json.dumps(k3))
     d_prim = cam["rays_d"] / cam["rays_d"].norm(dim=-1, keepdim=True)
+    # K3 on the small mesh, at the launches of its frames (the dense route:
+    # incoherent batches in "morton" order, as Tracer asks for them)
+    gen3 = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    params_s = make_params(v_small.shape[0], args.seed, dev)
+    static_rs = frame_static(f_small, H, W, FRAME_SPP, torch.bfloat16, **RESTIR)
+    k3_checks = [check_k3("K3 closest, primary", cm_small, cam["rays_o"], d_prim)]
+    sbo, sbd = bounce_rays(vs, fs, BOUNCE_RAYS, gen3)
+    k3_checks.append(check_k3("K3 closest, bounce", cm_small, sbo, sbd, sort="morton"))
+    k3_checks.append(check_k3("K3 any, bounce", cm_small, sbo, sbd, t_max=1e9, sort="morton"))
+    sso, ssd, sst = shadow_rays(vs, fs, cm_small, cam, sky_env(), gen3)
+    k3_checks.append(check_k3("K3 any, direct shadow", cm_small, sso, ssd, t_max=sst,
+                              sort="morton"))
+    calls = record_occluded(lambda: render_stage1(params_s, static_rs, vs, cam["rays_o"],
+                                                  cam["rays_d"], generator=gen3))
+    n_cross_s = 2 * RESTIR["restir_neighbors"] * int(sso.shape[0])
+    xo, xd, xt = next(c for c in calls if c[0].shape[0] == n_cross_s)
+    del calls
+    k3_checks.append(check_k3("K3 any, spatial cross visibility", cm_small, xo, xd, t_max=xt,
+                              sort="morton"))
+    # ragged: N not a multiple of the 128-ray block; 61 clusters of 99, so
+    # M = 6,039 is not a multiple of the 256-triangle staged block and its
+    # rows do not start on 16 bytes
+    cm_rag = build_clusters(vs, fs, 99)
+    nr = min(50_001, sbo.shape[0] - 1)
+    k3_checks.append(check_k3("K3 closest, ragged", cm_rag, sbo[:nr], sbd[:nr]))
+    k3_checks.append(check_k3("K3 any, ragged", cm_rag, sbo[:nr], sbd[:nr],
+                              t_max=torch.rand(nr, generator=gen3, device=dev) * 2.0 - 0.5))
+    for c in k3_checks:
+        log("K3 dense: " + json.dumps(c))
+    del sbo, sbd, sso, ssd, sst, xo, xd, xt
     k1_checks = [check_tile("K1 closest, primary", cm_big, cam["rays_o"], d_prim, False, False,
                             640, 256)]
     bo, bd = bounce_rays(vb, fb, BOUNCE_RAYS, gen)
@@ -962,7 +1211,7 @@ def main(argv=None) -> int:
     k1_checks.append(check_tile("K1 any, direct shadow", cm_big, so, sd, True, "morton", 640, 64,
                                 t_max=st_max))
     counters = (tile_tracer.queue_trace, tile_tracer.grid_trace, dense_tracer.dense_hit,
-                scatter.scatter_add)
+                dense_tracer.dense_occluded, scatter.scatter_add)
 
     def zero_counts():
         for c in counters:
@@ -1000,13 +1249,16 @@ def main(argv=None) -> int:
     log("K4 scatter_add: " + json.dumps(k4))
     torch.cuda.empty_cache()
 
-    def timed_frames(st, name, n_frames=TIMED_FRAMES):
-        """One warm and n_frames timed frames of bench.py's frame -> (times, last out)."""
+    def timed_frames(st, name, n_frames=TIMED_FRAMES, prm=None, verts=None):
+        """One warm and n_frames timed frames of bench.py's frame (or of
+        another mesh: prm, verts) -> (times, last out)."""
+        prm = params if prm is None else prm
+        verts = vb if verts is None else verts
         times, out = [], None
         for i in range(1 + n_frames):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = render_stage1(params, st, vb, cam["rays_o"], cam["rays_d"], generator=gen)
+            out = render_stage1(prm, st, verts, cam["rays_o"], cam["rays_d"], generator=gen)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             log(f"{name} {i} ({'warm' if i == 0 else 'timed'}): {times[-1]:.3f} s, "
@@ -1036,14 +1288,15 @@ def main(argv=None) -> int:
 
     # ---- 4. the main path: counters zeroed, frames rendered, counters read
     static_s = frame_static(f_small, H, W, FRAME_SPP, torch.bfloat16)
-    params_s = make_params(v_small.shape[0], args.seed, dev)
     zero_counts()
     times, outs = timed_frames(static, "frame")
-    k1_frame = tile_tracer.queue_trace.launches
-    out_s = render_stage1(params_s, static_s, vs, cam["rays_o"], cam["rays_d"], generator=gen)
-    torch.cuda.synchronize()
     launches = read_counts()
+    k1_frame = launches["queue_trace"]
     check_outputs(outs, P)
+    # the small mesh's lighter frame: the dense route, K3 alone
+    zero_counts()
+    times_s, out_s = timed_frames(static_s, "small-mesh frame", prm=params_s, verts=vs)
+    launches_s = read_counts()
     check_outputs(out_s, P)
     frame_s = float(statistics.median(times[1:]))
     nominal = P * (1 + FRAME_SPP * 6)
@@ -1056,21 +1309,32 @@ def main(argv=None) -> int:
         "coverage": float(outs["mask"].float().mean()),
         "uncertain_count": float(outs["uncertain_count"]),
         "K1_launches_per_frame": k1_frame / (1 + TIMED_FRAMES),
-        "small_mesh_triangles": int(f_small.shape[0]),
-        "small_mesh_uncertain": float(out_s["uncertain_count"]),
-        "small_mesh_coverage": float(out_s["mask"].float().mean()),
         "launches": launches,
     }
     log("frame: " + json.dumps(frame))
+    small = {
+        "triangles": int(f_small.shape[0]), "frame_s": float(statistics.median(times_s[1:])),
+        "frame_s_all": times_s, "coverage": float(out_s["mask"].float().mean()),
+        "uncertain_count": float(out_s["uncertain_count"]),
+        "K3_closest_per_frame": launches_s["dense_hit"] / (1 + TIMED_FRAMES),
+        "K3_any_per_frame": launches_s["dense_occluded"] / (1 + TIMED_FRAMES),
+        "launches": launches_s,
+    }
+    log("small-mesh frame: " + json.dumps(small))
     if args.profile:
         prof = profile_run(lambda: render_stage1(params, static, vb, cam["rays_o"],
                                                  cam["rays_d"], generator=gen),
                            out_dir, FRAME_RANGES, "frame_profile.txt")
         log("frame profile: " + json.dumps(prof))
-    if frame["uncertain_count"] != 0 or frame["small_mesh_uncertain"] != 0:
+        prof_s = profile_run(lambda: render_stage1(params_s, static_s, vs, cam["rays_o"],
+                                                   cam["rays_d"], generator=gen),
+                             out_dir, FRAME_RANGES, "small_frame_profile.txt")
+        log("small-mesh frame profile: " + json.dumps(prof_s))
+    if frame["uncertain_count"] != 0 or small["uncertain_count"] != 0:
         raise AssertionError("uncertain_count != 0 at the bench budgets")
-    if launches["queue_trace"] <= 0 or launches["dense_hit"] <= 0:
+    if launches["queue_trace"] <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    check_k3_launches("small-mesh frame", launches_s, K3_FRAME)
     del outs, out_s
 
     # ---- 4b. the lighter train step: counters zeroed, steps taken, counters read
@@ -1168,6 +1432,31 @@ def main(argv=None) -> int:
     del state, aux
     torch.cuda.empty_cache()
 
+    # ---- 4e. bench.py's ReSTIR frame on the small mesh: the dense route
+    zero_counts()
+    times_rs, out_rs = timed_frames(static_rs, "small-mesh restir frame", prm=params_s, verts=vs)
+    launches_rs = read_counts()
+    check_outputs(out_rs, P)
+    small_r = {
+        "config": "bench.py frame (use_restir=True, denoise_iters=4) on the small mesh",
+        "frame_s": float(statistics.median(times_rs[1:])), "frame_s_all": times_rs,
+        "coverage": float(out_rs["mask"].float().mean()),
+        "uncertain_count": float(out_rs["uncertain_count"]),
+        "K3_closest_per_frame": launches_rs["dense_hit"] / (1 + TIMED_FRAMES),
+        "K3_any_per_frame": launches_rs["dense_occluded"] / (1 + TIMED_FRAMES),
+        "launches": launches_rs,
+    }
+    log("small-mesh restir frame: " + json.dumps(small_r))
+    if args.profile:
+        prof_rs = profile_run(lambda: render_stage1(params_s, static_rs, vs, cam["rays_o"],
+                                                    cam["rays_d"], generator=gen),
+                              out_dir, RESTIR_RANGES, "small_restir_frame_profile.txt")
+        log("small-mesh restir frame profile: " + json.dumps(prof_rs))
+    if small_r["uncertain_count"] != 0:
+        raise AssertionError("small-mesh restir frame: uncertain_count != 0")
+    check_k3_launches("small-mesh restir frame", launches_rs, K3_RESTIR_FRAME)
+    del out_rs
+
     # ---- 5. reference check: card vs CPU on a small fp32 frame
     Hs = Ws = 64
     cam_s = camera(Hs, Ws, "cpu")
@@ -1207,8 +1496,14 @@ def main(argv=None) -> int:
     # 64 of the 69 launches of the lighter frame (the spatial cross-visibility
     # check is 32 of the ReSTIR frame's 37); K2's is the primary rays.
     k1, k2 = k1_checks[3], k2_checks[0]
-    paths = {"frame": launches, "train_step": launches_train, "restir_frame": launches_rf,
-             "restir_train_step": launches_rt, "grid_trace_path": launches_grid}
+    paths = {"frame": launches, "small_frame": launches_s, "train_step": launches_train,
+             "restir_frame": launches_rf, "restir_train_step": launches_rt,
+             "small_restir_frame": launches_rs, "grid_trace_path": launches_grid}
+    # K3's headlines: the primary rays (closest), the direct-shadow batch
+    # (any hit: 64 of the lighter small-mesh frame's 66 any-hit launches)
+    k3c, k3a = k3_checks[0], k3_checks[3]
+    k3_closest = [c for c in k3_checks if not c["any_hit"]]
+    k3_any = [c for c in k3_checks if c["any_hit"]]
 
     def by_path(name):
         return dict(launches=sum(p[name] for p in paths.values()),
@@ -1231,12 +1526,20 @@ def main(argv=None) -> int:
              ms=k2["ms"], device_ms=k2["device_ms"], split=k2["split"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None, checks=k2_checks),
-        dict(name="dense_hit (K3)", route="cuda",
+        dict(name="dense_hit (K3, closest hit)", route="cuda",
              source="mirres_restir_nerf_mesh_torch/csrc/dense_hit.cu",
              replaces="mirres_restir_nerf_mesh_tpu/ops/pallas_tracer.py:40",
-             **by_path("dense_hit"), max_abs_err=k3["max_abs_err"],
-             ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
-             bound_by=k3["bound_by"], library_ms=None, checks=[k3]),
+             **by_path("dense_hit"), max_abs_err=max(c["max_abs_err"] for c in k3_closest),
+             ms=k3c["ms"], device_ms=k3c["device_ms"], split=k3c["split"],
+             plain_ms=k3c["plain_ms"], bound_ms=k3c["bound_ms"], bound_by=k3c["bound_by"],
+             issue_floor_ms=k3c["issue_floor_ms"], library_ms=None, checks=k3_closest),
+        dict(name="dense_occluded (K3, any hit)", route="cuda",
+             source="mirres_restir_nerf_mesh_torch/csrc/dense_hit.cu",
+             replaces="mirres_restir_nerf_mesh_tpu/ops/pallas_tracer.py:40",
+             **by_path("dense_occluded"), max_abs_err=max(c["max_abs_err"] for c in k3_any),
+             ms=k3a["ms"], device_ms=k3a["device_ms"], split=k3a["split"],
+             plain_ms=k3a["plain_ms"], bound_ms=k3a["bound_ms"], bound_by=k3a["bound_by"],
+             issue_floor_ms=k3a["issue_floor_ms"], library_ms=None, checks=k3_any),
         dict(name="scatter_add (K4)", route="cuda",
              source="mirres_restir_nerf_mesh_torch/csrc/scatter_add.cu",
              replaces="mirres_restir_nerf_mesh_tpu/ops/pallas_scatter.py:37",
@@ -1248,7 +1551,7 @@ def main(argv=None) -> int:
     if out_dir is not None:
         (out_dir / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": kernels, "frame": frame,
-             "train_step": train, "restir_frame": frame_r, "restir_train_step": train_r,
+             "small_frame": small, "small_restir_frame": small_r, "train_step": train, "restir_frame": frame_r, "restir_train_step": train_r,
              "reference_check": agree,
              "train_reference_check": agree_train, "restir_reference_check": agree_restir},
             indent=1))

@@ -110,12 +110,21 @@ def _finish(cm: ClusterMesh, best_lin, best_t, best_u, best_v, t_max_arr) -> Hit
 
 def _intersect_dense(cm: ClusterMesh, rays_o, rays_d, t_min, t_max_arr) -> HitResult:
     """One dense pass over every triangle (small meshes), through the dense
-    tracer (kernel on the card, its plain version on the CPU)."""
-    from .dense_tracer import dense_hit, tris_cm_from_soa
+    tracer on the SoA (kernel on the card, its plain version on the CPU)."""
+    from .dense_tracer import dense_hit
 
     M = cm.soa.shape[1]
-    best_t, best_lin, u, v = dense_hit(tris_cm_from_soa(cm.soa), rays_o, rays_d, t_min=t_min)
+    best_t, best_lin, u, v = dense_hit(cm.soa, rays_o, rays_d, t_min=t_min)
     best_t = torch.where(best_t >= 1e29, torch.inf, best_t)
     best_t = torch.where(best_t <= t_max_arr, best_t, torch.inf)
     best_lin = torch.clamp(best_lin, 0, M - 1)
     return _finish(cm, best_lin, best_t, u, v, t_max_arr)
+
+
+def _occluded_dense(cm: ClusterMesh, rays_o, rays_d, t_min, t_max_arr) -> torch.Tensor:
+    """The dense pass's any hit: [N] bool, equal to ``_intersect_dense(...).prim
+    >= 0`` (a hit t_min < t < t_max; the closest hit drops t >= 1e29, hence
+    the cap)."""
+    from .dense_tracer import dense_occluded
+
+    return dense_occluded(cm.soa, rays_o, rays_d, torch.clamp_max(t_max_arr, 1e29), t_min=t_min)

@@ -29,7 +29,7 @@ import torch
 from torch.profiler import record_function
 
 from .bvh import HitResult
-from .cluster_bvh import SC_GROUP, ClusterMesh, _finish, _intersect_dense
+from .cluster_bvh import SC_GROUP, ClusterMesh, _finish, _intersect_dense, _occluded_dense
 from .morton import morton3d
 
 R_TILE = 512      # rays per tile (threads per block)
@@ -593,20 +593,61 @@ def _empty_trace(N: int, device) -> TileTraceOut:
     )
 
 
+def _takes_dense(cm: ClusterMesh, dense_threshold: int) -> bool:
+    """The dense pass's rule (the reference's): few padded slots, one
+    cluster, or clusters the tile kernel does not take."""
+    C, S = cm.prim.shape
+    return C * S <= dense_threshold or C == 1 or S % 128 != 0
+
+
+DENSE_SORT_MIN = 1 << 16   # rays below which the dense route keeps their order
+
+
+def dense_order(cm: ClusterMesh, rays_o, rays_d, t_max, sort_octants, tile: int = R_TILE):
+    """The dense route's ray order -> (rays_o, rays_d, t_max [N], perm or
+    None): where sort_octants asks for it and N >= DENSE_SORT_MIN (and >
+    tile), _sort_keys order, so that the kernel's warps hold neighbouring
+    rays of one octant and cull triangle groups against a narrow bundle.
+    Smaller batches keep their order: there the sort's own launches cost
+    the host more than the kernel gains."""
+    N = rays_o.shape[0]
+    ro, rd = rays_o.to(torch.float32), rays_d.to(torch.float32)
+    tm = _t_max_array(t_max, N, rays_o.device)
+    if not sort_octants or N <= tile or N < DENSE_SORT_MIN:
+        return ro, rd, tm, None
+    perm = torch.sort(_sort_keys(cm, ro, rd, tm, sort_octants, 4096), stable=True).indices
+    return ro[perm], rd[perm], tm[perm], perm
+
+
+def _dense_pass(cm: ClusterMesh, rays_o, rays_d, t_min: float, t_max, sort_octants, tile: int,
+                occluded: bool):
+    """The dense route (closest hit, or the any-hit mask) in dense_order,
+    the results back in input order."""
+    ro, rd, tm, perm = dense_order(cm, rays_o, rays_d, t_max, sort_octants, tile)
+    res = (_occluded_dense if occluded else _intersect_dense)(cm, ro, rd, t_min, tm)
+    if perm is None:
+        return res
+
+    def unsort(x):
+        out = torch.empty_like(x)
+        out[perm] = x
+        return out
+
+    return unsort(res) if occluded else HitResult(*(unsort(x) for x in res))
+
+
 def intersect_tiles_t(cm: ClusterMesh, rays_o, rays_d, t_min: float = 1e-4, t_max=1e10,
                       any_hit: bool = False, k_cap: int = 128, tile: int = R_TILE,
                       dense_threshold: int = 8192, sort_octants=False, queue: bool = True,
                       queue_avg: int = 64) -> TileTraceOut:
     """Dense pass for small meshes (exact -> uncertain all False), tile trace
-    otherwise."""
+    otherwise.  The dense pass finds the closest hit also for any_hit, so
+    the HitResult is the reference's."""
     N = rays_o.shape[0]
-    C, S = cm.prim.shape
     if N == 0:
         return _empty_trace(0, rays_o.device)
-    if C * S <= dense_threshold or C == 1 or S % 128 != 0:
-        t_max_arr = _t_max_array(t_max, N, rays_o.device)
-        hit = _intersect_dense(cm, rays_o.to(torch.float32), rays_d.to(torch.float32),
-                               t_min, t_max_arr)
+    if _takes_dense(cm, dense_threshold):
+        hit = _dense_pass(cm, rays_o, rays_d, t_min, t_max, sort_octants, tile, False)
         return TileTraceOut(hit=hit, uncertain=torch.zeros((N,), dtype=torch.bool,
                                                            device=rays_o.device))
     return tile_trace(cm, rays_o, rays_d, t_min=t_min, t_max=t_max, any_hit=any_hit,
@@ -628,6 +669,12 @@ def occluded_tiles_t(cm: ClusterMesh, rays_o, rays_d, t_max, t_min: float = 1e-4
                      k_cap: int = 128, tile: int = R_TILE, dense_threshold: int = 8192,
                      sort_octants=False, queue: bool = True,
                      queue_avg: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(occluded [N] bool, uncertain [N] bool).  The dense pass runs its any
+    hit, whose mask is the closest hit's prim >= 0."""
+    N = rays_o.shape[0]
+    if N and _takes_dense(cm, dense_threshold):
+        occ = _dense_pass(cm, rays_o, rays_d, t_min, t_max, sort_octants, tile, True)
+        return occ, torch.zeros((N,), dtype=torch.bool, device=rays_o.device)
     res = intersect_tiles_t(cm, rays_o, rays_d, t_min=t_min, t_max=t_max, any_hit=True,
                             k_cap=k_cap, tile=tile, dense_threshold=dense_threshold,
                             sort_octants=sort_octants, queue=queue, queue_avg=queue_avg)

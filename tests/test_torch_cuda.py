@@ -1,5 +1,7 @@
 """On the card only: the CUDA kernels K1 and K2 (csrc/tile_trace.cu, with
-the tile split forced off and on), K3 (csrc/dense_hit.cu) and K4
+the tile split forced off and on), K3 (csrc/dense_hit.cu, closest and
+any hit, split forced off and on, also with t_min < 0, rows equal bit for
+bit) and K4
 (csrc/scatter_add.cu, its 1-D and [N, Kc] entries and a contention-heavy
 input) against their plain PyTorch versions on the same inputs, and the
 launch counters.  Skipped without a CUDA device.  On a
@@ -48,6 +50,89 @@ def test_dense_hit_kernel_matches_plain(dev):
     m = (k[1] == p[1]) & (p[1] >= 0)
     for a, b in zip(k[0:1] + k[2:], p[0:1] + p[2:]):
         torch.testing.assert_close(a[m], b[m], rtol=1e-5, atol=1e-6)
+
+
+def same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                                              b.view(torch.int32) if b.is_floating_point() else b)
+
+
+def dense_case(dev, n_rays=5037):
+    """A ragged case: the cluster SoA of S = 100 (not a multiple of the
+    staged block), rays towards the mesh, t_max with dead lanes and t_max at
+    the hit's t."""
+    v, tr = bumpy_sphere(24, 48)
+    cm = cluster_bvh.build_clusters(torch.from_numpy(v).to(dev), torch.from_numpy(tr).to(dev), 100)
+    o, _ = shell_rays(n_rays, seed=11, radius=1.5)
+    d = np.random.RandomState(12).normal(size=o.shape).astype(np.float32) * 0.4 - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ro, rd = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_hit = dense_tracer.dense_hit_plain(cm.soa, ro, rd)[0]
+    k = torch.from_numpy(np.random.RandomState(13).rand(n_rays)).to(dev)
+    tm = torch.where(k < 0.2, 0.0, torch.where(k < 0.5, t_hit, 0.5 + 3 * k.float()))
+    return cm.soa, ro, rd, tm
+
+
+@pytest.mark.parametrize("split", [1, 3, None])
+def test_dense_hit_kernel_rows_equal_plain(dev, split):
+    """K3 closest hit unsplit, split in 3 and at the wrapper's split, on the
+    SoA and on the padded [16, Mpad] table: rows equal bit for bit."""
+    soa, ro, rd, _ = dense_case(dev)
+    p = dense_tracer.dense_hit_plain(soa, ro, rd)
+    assert int((p[1] >= 0).sum()) > 1000
+    for tris in (soa, dense_tracer.tris_cm_from_soa(soa)):
+        before = dense_tracer.dense_hit.launches
+        k = dense_tracer.dense_hit(tris, ro, rd, split=split)
+        torch.cuda.synchronize()
+        assert dense_tracer.dense_hit.launches == before + 1
+        for a, b in zip(k, p):
+            assert same_bits(a, b)
+
+
+@pytest.mark.parametrize("split", [1, 3, None])
+def test_dense_occluded_kernel_equals_plain(dev, split):
+    soa, ro, rd, tm = dense_case(dev)
+    p = dense_tracer.dense_occluded_plain(soa, ro, rd, tm)
+    assert p.any() and not p.all()
+    before = dense_tracer.dense_occluded.launches
+    k = dense_tracer.dense_occluded(soa, ro, rd, tm, split=split)
+    torch.cuda.synchronize()
+    assert dense_tracer.dense_occluded.launches == before + 1
+    assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("split", [1, None])
+def test_dense_kernels_negative_t_min_equal_plain(dev, split):
+    """t_min < 0, so hits behind the origin count: warps of 32 rays in a
+    narrow fan from inside the mesh (a narrow cone, which the bundle cull
+    would use to drop every group behind them), t_min = -2, so the closest
+    hit lies behind the origin.  Closest rows and the any-hit mask (t_max
+    behind the origin, ahead of it, and dead) equal the plain version's bit
+    for bit."""
+    v, tr = bumpy_sphere(24, 48)
+    cm = cluster_bvh.build_clusters(torch.from_numpy(v).to(dev), torch.from_numpy(tr).to(dev), 100)
+    rs = np.random.RandomState(21)
+    axis = rs.normal(size=(160, 1, 3))
+    d = axis / np.linalg.norm(axis, axis=2, keepdims=True) + rs.normal(size=(160, 32, 3)) * 0.03
+    d /= np.linalg.norm(d, axis=2, keepdims=True)
+    o = rs.normal(size=(160, 1, 3)) * 0.1 + rs.normal(size=(160, 32, 3)) * 0.01
+    ro = torch.tensor(o.reshape(-1, 3), dtype=torch.float32, device=dev)
+    rd = torch.tensor(d.reshape(-1, 3), dtype=torch.float32, device=dev)
+    t_min = -2.0
+    p = dense_tracer.dense_hit_plain(cm.soa, ro, rd, t_min)
+    assert int(((p[1] >= 0) & (p[0] < 0)).sum()) > 4000
+    k = dense_tracer.dense_hit(cm.soa, ro, rd, t_min, split=split)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert same_bits(a, b)
+    u = torch.from_numpy(rs.rand(ro.shape[0])).to(dev)
+    tm = torch.where(u < 0.2, -2.5, torch.where(u < 0.5, -1.95, torch.where(u < 0.75, -0.5, 0.3)))
+    tm = tm.float()
+    po = dense_tracer.dense_occluded_plain(cm.soa, ro, rd, tm, t_min)
+    assert po.any() and not po.all()
+    ko = dense_tracer.dense_occluded(cm.soa, ro, rd, tm, t_min, split=split)
+    torch.cuda.synchronize()
+    assert torch.equal(ko, po)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
