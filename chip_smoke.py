@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's stage-1 forward frame and train step,
-with and without ReSTIR DI, on one NVIDIA card.
+"""Drive the PyTorch + CUDA port on one NVIDIA card: the stage-1 forward
+frame and train step, with and without ReSTIR DI, and stage 0 (the
+radiance-field train step, occupancy update, eval render and mesh export).
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
     python3 chip_smoke.py --k3-route    (the dense route alone; see k3_route)
@@ -55,11 +56,13 @@ Phases (any failure exits non-zero):
    ([N, 128], the layout GatherRows passes) into the 6,328,848-row
    material table, random fp32 updates, through the 2-D and the 1-D entry,
    and the same updates all into 8 rows (contention); within
-   1e-5 * sum|upd| at each row; timed beside its plain version and the one
+   1e-5 * sum|upd| at each row of the plain version summed in fp64 (the
+   exact sum; the distance to the fp32 plain version is printed); timed beside its plain version and the one
    PyTorch call that computes the same function (index_add_ on a zeroed
    table): event times of the calls, and device times of the kernel alone,
    the zeroing alone and index_add_ alone on inputs and a table allocated
-   beforehand (queued the same way).
+   beforehand (queued the same way).  K4 at the stage-0 step's own two
+   launches is checked the same way after phase 4f.
 4. The main path: the launch counters are zeroed, then ``render_stage1``
    (use_restir=False) renders bench.py's operating point (256x256, spp 32,
    2 bounces, ~100k triangles, k_cap 640, queue_avg 256/64, bf16 MLPs) once
@@ -91,6 +94,28 @@ Phases (any failure exits non-zero):
    s and coverage; uncertain_count 0 and K3 alone, 3 closest-hit and 34
    any-hit (2 NEE with the initial visibility fused in, 32 spatial cross
    visibility) launches a frame.
+4f. bench.py's stage-0 point (bench.py:254-330; the counters zeroed again):
+   8 synthetic frames of 256^2, the full-size field (16 levels of 2^19) in
+   bf16, 8192 rays x 64 samples compacted to 2^18 points, grid 128, one
+   occupancy update first; one warm and three timed groups of 16
+   sequential steps, one sync a group: it/s, Msamples/s (2^18 a step),
+   spread, peak memory, the march lattice length S and 2 K4 launches a
+   step (the stochastic encode's backward, [262,144, 16] row ids into
+   6,119,864 rows, and the TV loss's, [4096, 64]); loss, params and Adam
+   moments finite; then one warm and one timed occupancy update.  Then
+   K4 on the inputs recorded from one more step, each launch against its
+   plain version and timed beside index_add_ (as phase 3).
+4g. Stage 0 as a user runs it (the counters zeroed again): the JAX
+   package's learning test (tests/test_stage0.py: 300 iterations of 1024
+   rays, an occupancy update every 16, PSNR on view 0 before and after) at
+   full width in bf16 on 12 synthetic frames of 256^2, with that test's
+   gates (loss below half its first value, PSNR up >= 4 dB and above 15,
+   occupancy rate < 0.5, centre depth in (1.2, 1.9)) and one K4 launch a
+   step (TV off there); then export_stage0_mesh from the EMA field at
+   resolution 256 (the default 512 cut to fit the run) with the
+   visibility culling: a non-empty mesh whose median vertex radius lies
+   within 20% of the sphere's 0.5, and one closest-hit launch a training
+   view (K1, or K3 for a mesh of at most 8192 slots).
 5. Reference check: a 64x64, spp-2 frame of the small mesh in fp32 on the
    card against the same frame on the CPU (the plain versions, which the
    CPU tests hold against the JAX package), same weights and randoms.
@@ -108,8 +133,10 @@ Phases (any failure exits non-zero):
    when its sign flips (~4% of the offsets' and the material encoder's L2
    over all entries).  Where the rule holds, the two gradients have one
    sign and the two steps agree.  ``--plant-k4-fault scale|drop`` runs this
-   phase alone with K4's updates scaled by 1.01 or one K4 launch of three
-   dropped, and exits 0 only if the phase then fails.
+   phase and 5d with K4's updates scaled by 1.01 or a K4 launch dropped
+   (5b: one of three, 5d: the stochastic encode's), and exits 0 only if
+   5d then fails (5b passes the scale fault: Adam's first step is
+   scale-invariant).
 5c. The same for a 64x64, spp-2, fp32 ReSTIR frame of the small mesh with
    normal-AO, without and with the denoiser (denoise_iters 2): mask,
    face_id and every deterministic buffer (normal_ao included) agree on
@@ -117,8 +144,14 @@ Phases (any failure exits non-zero):
    means within 1e-2 relative.  The per-pixel agreement share of each
    Monte Carlo buffer is printed: spatial reuse and the denoiser carry a
    sampling decision that differs on the card to neighbouring pixels.
+5d. The same for one stage-0 step of a small fp32 field (8 levels of 2^15,
+   hidden 32, grid 32, 1024 rays, 32 samples, compaction to 8192 points,
+   TV on) with the same Stage0Randoms: loss within 1e-4 relative, each
+   gradient leaf (the encoder table included) within 1e-3 relative L2; and
+   one occupancy update with the same draws: the grid within 1e-4 relative
+   and the occupancy mask equal on >= 99.9% of cells.
 6. Print the kernel table as one JSON line (K1, K2, K3 closest hit, K3 any
-   hit, K4), the card line, and as the last line {"ok": true, "device":
+   hit, K4, and K4 at the stage-0 encode and TV shapes), the card line, and as the last line {"ok": true, "device":
    {...}}.
 """
 
@@ -166,6 +199,15 @@ BOUNCE_RAYS = 1 << 20
 TIMED_FRAMES = 3
 TIMED_STEPS = 3
 K4_STEP_LAUNCHES = 3        # material, jittered material, NeRF encode backward
+# stage 0 (phases 4f, 4g): steps a timed group and groups timed (bench.py's
+# loop), K4 launches a step (the stochastic encode's and the TV loss's
+# backward), the export's grid resolution (the default 512 cut to fit the run)
+STAGE0_STEPS = 16
+STAGE0_GROUPS = 3
+K4_STAGE0_LAUNCHES = 2
+STAGE0_EXPORT_RESOLUTION = 256
+STAGE0_RANGES = ("march", "field", "composite")
+STAGE0_CHECK_LEVELS = 8     # phase 5d's field: 8 levels of 2^15, hidden 32
 # bench.py's ReSTIR static and its nominal rays per frame: primary, then per
 # spp initial visibility, 2 x 5 spatial cross visibility, final visibility,
 # 2 bounces x (closest hit + NEE)
@@ -608,8 +650,9 @@ def record_occluded(run):
 
 
 def scatter_case(name, idx, upd, rows):
-    """K4 through its entry point against its plain version (within
-    1e-5 * sum|upd| at each row), then its times: event ms of the wrapper
+    """K4 through its entry point against its plain version in fp64 (within
+    1e-5 * sum|upd| at each row; the distance to the fp32 plain version is
+    printed beside it), then its times: event ms of the wrapper
     (zeroed table + kernel) beside zeros + index_add_, and the device ms of
     the kernel alone, of zeroing the table and of index_add_ alone, each
     on inputs and a table allocated beforehand (queued_ms)."""
@@ -620,11 +663,17 @@ def scatter_case(name, idx, upd, rows):
 
     k = scatter_add(idx, upd, rows)
     torch.cuda.synchronize()
-    p = scatter_add_plain(idx, upd, rows)
-    err = (k - p).abs()
-    tol = 1e-5 * scatter_add_plain(idx, upd.abs(), rows) + 1e-30
+    # the plain version in fp64 is the exact sum: the gate reads the
+    # kernel's own rounding, not that of index_add_'s fp32 atomics (on rows
+    # with hundreds of near-cancelling updates, the TV loss's, the two
+    # fp32 sums differ by up to ~1e-5 * sum|upd| between them)
+    p = scatter_add_plain(idx, upd.double(), rows)
+    err = (k.double() - p).abs()
+    tol = 1e-5 * scatter_add_plain(idx, upd.abs().double(), rows) + 1e-30
     if not bool((err <= tol).all()):
         raise AssertionError(f"{name}: differs from its plain version by {float(err.max())}")
+    err32 = float((k - scatter_add_plain(idx, upd, rows)).abs().max())
+    del p
     idx_l, upd_f = idx.reshape(-1).long(), upd.reshape(-1, upd.shape[-1])
     table = torch.zeros((rows, upd.shape[-1]), device=upd.device)
 
@@ -632,7 +681,9 @@ def scatter_case(name, idx, upd, rows):
         return torch.zeros_like(table).index_add_(0, idx_l, upd_f)
 
     return dict(max_abs_err=float(err.max()), max_err_over_tol=float((err / tol).max()),
+                max_abs_err_vs_fp32_plain=err32,
                 ms=cuda_ms(lambda: scatter_add(idx, upd, rows), 10),
+                host_ms=host_ms(lambda: scatter_add(idx, upd, rows)),
                 plain_ms=cuda_ms(lambda: scatter_add_plain(idx, upd, rows), 3),
                 library_ms=cuda_ms(library, 10),
                 device_ms=queued_ms(lambda: scatter_add_into(table, idx, upd)),
@@ -1066,23 +1117,424 @@ def k3_route(seed: int, dev) -> None:
         log("K3 frame: " + json.dumps(frames[name]))
 
 
-def plant_k4_fault(kind: str):
+def stage0_bench_config():
+    """bench.py's stage-0 point (bench.py:268-271)."""
+    from mirres_restir_nerf_mesh_torch.config import Config, finalize
+
+    return finalize(Config(bound=1.0, num_rays=8192, samples_per_ray=64, num_points=2 ** 18,
+                           dt_gamma=0.0, lambda_tv=1e-8, grid_size=128, adaptive_num_rays=True))
+
+
+def stage0_learn_config():
+    """The JAX package's own stage-0 learning test (tests/test_stage0.py)."""
+    from mirres_restir_nerf_mesh_torch.config import Config, finalize
+
+    return finalize(Config(bound=1.0, iters=300, num_rays=1024, max_steps=128,
+                           samples_per_ray=32, samples_per_ray_infer=48, grid_size=32,
+                           dt_gamma=0.0, lambda_tv=0.0, lambda_mask=0.1, density_thresh=10.0,
+                           update_extra_interval=16))
+
+
+def stage0_finite(state, aux, name):
+    """Finite loss, params and Adam moments (a non-finite gradient makes the
+    moments non-finite)."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.train.stage0 import tree_leaves
+
+    if not bool(torch.isfinite(aux["loss"])):
+        raise AssertionError(f"{name}: loss {float(aux['loss'])}")
+    for x in tree_leaves(state.params) + state.opt_state.mu + state.opt_state.nu:
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name}: non-finite params or moments")
+
+
+def record_scatter(run):
+    """The inputs of every K4 launch the hash grid makes inside run():
+    [(idx, upd, rows)], copied."""
+    from mirres_restir_nerf_mesh_torch.ops import hashgrid
+
+    orig, calls = hashgrid.scatter_add, []
+
+    def recording(idx, upd, rows):
+        calls.append((idx.clone(), upd.clone(), rows))
+        return orig(idx, upd, rows)
+
+    hashgrid.scatter_add = recording
+    try:
+        run()
+    finally:
+        hashgrid.scatter_add = orig
+    return calls
+
+
+def check_scatter_stage0(calls, levels: int):
+    """K4 at the stage-0 step's own launches (recorded from a step of 4f):
+    the stochastic encode's backward ([P, L] row ids) and the TV loss's
+    ([4096, 4L]); each against its plain version, timed beside index_add_,
+    with its byte bound."""
+    res = []
+    for idx, upd, rows in calls:
+        what = ("encode backward" if idx.shape[1] == levels else "TV loss backward")
+        C = upd.shape[-1]
+        nbytes = idx.numel() * 4 + upd.numel() * 4 + rows * C * 4
+        res.append(dict(what=what, shape=f"[{idx.shape[0]}, {idx.shape[1]}] row ids = "
+                                         f"{idx.numel()} updates of {C} into {rows} rows",
+                        **scatter_case(f"K4 scatter_add, stage-0 {what}", idx, upd, rows),
+                        **bound(0, nbytes)))
+    return res
+
+
+def profile_stage0_phases(state, step_fn, sampler, cfg, spec, gen, out_dir):
+    """One stage-0 step cut into forward (batch, render, loss), backward
+    (autograd.grad of every leaf) and optimizer (Adam, EMA), each under its
+    own torch.profiler -> {phase: profile_run summary}."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.train import stage0 as s0
+
+    box = {}
+    leaves = [x.detach().requires_grad_(True) for x in s0.tree_leaves(state.params)]
+    params = s0.tree_unflatten(state.params, iter(leaves))
+    n_march = step_fn.march_candidates
+
+    def forward():
+        rnd = s0.draw_stage0_randoms(sampler, cfg, n_march, gen)
+        batch = sampler.sample(rnd.sample)
+        box["loss"] = s0.stage0_loss(params, state.occ.occ, batch, rnd, cfg, spec,
+                                     int(state.step), n_march)[0]
+
+    def backward():
+        box["grads"] = list(torch.autograd.grad(box["loss"], leaves, allow_unused=True))
+
+    def optimizer():
+        new, _ = s0.make_optimizer(cfg).step(state.params, box["grads"], state.opt_state)
+        with torch.no_grad():
+            s0.tree_unflatten(new, iter([0.95 * e + 0.05 * p for e, p in zip(
+                s0.tree_leaves(state.ema_params), s0.tree_leaves(new))]))
+
+    return {name: profile_run(fn, out_dir, STAGE0_RANGES if name == "forward" else (),
+                              f"stage0_{name}_profile.txt")
+            for name, fn in (("forward", forward), ("backward", backward),
+                             ("optimizer", optimizer))}
+
+
+def stage0_bench(dev, gen, counts, out_dir, profile: bool):
+    """Phase 4f: bench.py's stage-0 point (bench.py:254-330): 8 synthetic
+    frames of 256^2, the full-size field in bf16, one occupancy update,
+    then the counters zeroed, one warm group and STAGE0_GROUPS timed groups
+    of STAGE0_STEPS sequential steps (one sync a group), the counters read;
+    then one warm and one timed occupancy update.  -> (result, the inputs
+    of one step's K4 launches, recorded after the counters were read)."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.data.provider import RayDataset
+    from mirres_restir_nerf_mesh_torch.data.synthetic import make_synthetic_frames
+    from mirres_restir_nerf_mesh_torch.models.nerf import NeRFSpec
+    from mirres_restir_nerf_mesh_torch.train import stage0 as s0
+
+    zero_counts, read_counts = counts
+    cfg = stage0_bench_config()
+    sampler = RayDataset(make_synthetic_frames(n_frames=8, H=256, W=256, bound=cfg.bound),
+                         bound=cfg.bound, device=dev)
+    spec = NeRFSpec(bound=cfg.bound, compute_dtype=torch.bfloat16)
+    state = s0.init_state(gen, cfg, spec, device=dev)
+    step_fn = s0.make_train_step(cfg, spec, sampler)
+    occ_update = s0.make_occ_update(cfg, spec)
+    state = occ_update(state, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for g in range(1 + STAGE0_GROUPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STAGE0_STEPS):
+            state, aux = step_fn(state, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        log(f"stage-0 group {g} ({'warm' if g == 0 else 'timed'}): {times[-1]:.3f} s "
+            f"for {STAGE0_STEPS} steps, loss {float(aux['loss']):.6f}")
+    launches = read_counts()
+    stage0_finite(state, aux, "stage-0 step")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state = occ_update(state, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = occ_update(state, gen)
+    torch.cuda.synchronize()
+    occ_s = time.perf_counter() - t0
+    timed = times[1:]
+    step_s = statistics.median(timed) / STAGE0_STEPS
+    steps = STAGE0_STEPS * (1 + STAGE0_GROUPS)
+    pts = min(cfg.num_points, cfg.num_rays * cfg.samples_per_ray)
+    res = {"config": "bench.py stage 0: 8192 rays x 64 samples, num_points 2^18, "
+                     "adaptive_num_rays, 16 levels of 2^19, grid 128, bf16, 8 frames of 256^2",
+           "group_s": times, "step_s": step_s, "it_per_s": 1.0 / step_s,
+           "Msamples_per_s": pts / step_s / 1e6,
+           "spread": max(abs(t - statistics.median(timed)) for t in timed) /
+           statistics.median(timed),
+           "max_memory_allocated_GB": peak, "march_lattice_S": step_fn.march_candidates,
+           "num_points_last": int(aux["num_points"]), "loss_last": float(aux["loss"]),
+           "occ_update_s": occ_s, "occ_rate": float(state.occ.occ.float().mean()),
+           "K4_launches_per_step": launches["scatter_add"] / steps, "launches": launches}
+    log("stage-0 step: " + json.dumps(res))
+    if launches["scatter_add"] != K4_STAGE0_LAUNCHES * steps:
+        raise AssertionError(f"stage-0 step: {launches['scatter_add']} K4 launches in {steps} "
+                             f"steps, {K4_STAGE0_LAUNCHES} a step expected")
+    calls = record_scatter(lambda: step_fn(state, gen))
+    if profile:
+        res["profile"] = profile_stage0_phases(state, step_fn, sampler, cfg, spec, gen, out_dir)
+        log("stage-0 step profile: " + json.dumps(res["profile"]))
+    return res, calls, spec.grid_levels
+
+
+def stage0_learn(dev, gen, counts, out_dir):
+    """Phase 4g: stage 0 as a user runs it, by the recipe of the JAX
+    package's learning test (tests/test_stage0.py: 300 iterations, an
+    occupancy update every 16, PSNR on training view 0 before and after)
+    at full width (NeRFSpec defaults, bf16) on 12 synthetic frames of
+    256^2, then export_stage0_mesh from the EMA field at resolution 256
+    with the visibility culling.  Gates: the learning test's own, and a
+    non-empty mesh whose median vertex radius lies within 20% of the
+    sphere's 0.5; the culling traced one closest hit a view (K1, or K3 for
+    a small mesh)."""
+    import numpy as np
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.data.provider import RayDataset
+    from mirres_restir_nerf_mesh_torch.data.synthetic import make_synthetic_frames
+    from mirres_restir_nerf_mesh_torch.export import stage0_export as ex
+    from mirres_restir_nerf_mesh_torch.models import nerf as nerf_model
+    from mirres_restir_nerf_mesh_torch.train import stage0 as s0
+
+    zero_counts, read_counts = counts
+    cfg = stage0_learn_config()
+    n_frames, HW = 12, 256
+    data = make_synthetic_frames(n_frames=n_frames, H=HW, W=HW, bound=cfg.bound)
+    HW = data.H
+    sampler = RayDataset(data, bound=cfg.bound, device=dev)
+    spec = nerf_model.NeRFSpec(bound=cfg.bound, compute_dtype=torch.bfloat16)
+    state = s0.init_state(gen, cfg, spec, device=dev)
+    step_fn = s0.make_train_step(cfg, spec, sampler)
+    occ_update = s0.make_occ_update(cfg, spec)
+    render_chunk = s0.make_render_fn(cfg, spec, use_ema=False)
+    frame = sampler.frame_rays(0)
+    gt = frame["pixels"].cpu().numpy().reshape(HW, HW, 3)
+
+    def eval_frame():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, depth = s0.render_frame(state, render_chunk, frame["rays_o"], frame["rays_d"], HW,
+                                     HW)
+        return img, depth, time.perf_counter() - t0
+
+    def psnr(img):
+        return float(-10.0 * np.log10(max(float(np.mean((img - gt) ** 2)), 1e-12)))
+
+    img0, _, eval0_s = eval_frame()
+    zero_counts()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(cfg.iters):
+        if i % cfg.update_extra_interval == 0:
+            state = occ_update(state, gen)
+        state, aux = step_fn(state, gen)
+        losses.append(aux["loss"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    losses = [float(x) for x in losses]
+    img1, depth1, eval1_s = eval_frame()
+    res = {"config": "tests/test_stage0.py recipe at full width: 300 iterations of 1024 rays, "
+                     "max_steps 128, 32 samples, grid 32, occupancy update every 16; "
+                     "NeRFSpec defaults, bf16; 12 synthetic frames of 256^2",
+           "train_s": train_s, "loss_first": losses[0], "loss_last": losses[-1],
+           "psnr_before": psnr(img0), "psnr_after": psnr(img1),
+           "occ_rate": float(state.occ.occ.float().mean()),
+           "center_depth": float(depth1[HW // 2, HW // 2]),
+           "eval_frame_s": [eval0_s, eval1_s], "launches": launches}
+    log("stage-0 learning run: " + json.dumps(res))
+    fails = []
+    if not np.isfinite(losses).all() or not losses[-1] < 0.5 * losses[0]:
+        fails.append("loss did not fall below half its first value")
+    if not (res["psnr_after"] > res["psnr_before"] + 4.0 and res["psnr_after"] > 15.0):
+        fails.append("PSNR gate")
+    if not res["occ_rate"] < 0.5:
+        fails.append("occupancy rate")
+    if not 1.2 < res["center_depth"] < 1.9:
+        fails.append("centre depth")
+    if launches["scatter_add"] != cfg.iters:      # the encode's backward; TV is off here
+        fails.append(f"{launches['scatter_add']} K4 launches in {cfg.iters} steps")
+    if fails:
+        raise AssertionError(f"stage-0 learning run failed: {fails}")
+
+    # the export, the EMA field's density; the culling's result kept
+    box, orig = {}, ex.mark_unseen_triangles
+
+    def recording(*a, **k):
+        box["unseen"] = orig(*a, **k)
+        return box["unseen"]
+
+    def density_fn(pts):
+        return nerf_model.density(state.ema_params, pts, spec)["sigma"]
+
+    ex.mark_unseen_triangles = recording
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        meshes = ex.export_stage0_mesh(
+            density_fn, str(Path(out_dir or "build") / "stage0_mesh"), bound=cfg.bound,
+            cascade=cfg.cascade, resolution=STAGE0_EXPORT_RESOLUTION,
+            density_thresh=cfg.density_thresh, dataset=data, visibility_culling=True, device=dev)
+    finally:
+        ex.mark_unseen_triangles = orig
+    export_s = time.perf_counter() - t0
+    launches_x = read_counts()
+    verts, tris = meshes[0] if meshes else (np.zeros((0, 3)), np.zeros((0, 3)))
+    unseen = box.get("unseen", np.zeros(0, bool))
+    radius = float(np.median(np.linalg.norm(verts, axis=1))) if len(verts) else 0.0
+    res["export"] = {"resolution": STAGE0_EXPORT_RESOLUTION, "export_s": export_s,
+                     "faces": int(tris.shape[0]), "verts": int(verts.shape[0]),
+                     "faces_before_culling": int(unseen.shape[0]),
+                     "unseen_share": float(unseen.mean()) if unseen.size else None,
+                     "median_vertex_radius": radius, "launches": launches_x}
+    log("stage-0 export: " + json.dumps(res["export"]))
+    traced = launches_x["queue_trace"] + launches_x["dense_hit"]
+    if tris.shape[0] == 0 or not abs(radius - 0.5) <= 0.1:
+        raise AssertionError(f"stage-0 export: {tris.shape[0]} faces, median vertex radius "
+                             f"{radius} (0.5 +- 20% expected)")
+    if traced != n_frames or launches_x["dense_occluded"] or launches_x["grid_trace"]:
+        raise AssertionError(f"stage-0 export: culling launches {launches_x}, one closest hit "
+                             f"a view ({n_frames}) expected")
+    return res
+
+
+def check_stage0_reference(seed, dev):
+    """Phase 5d: one stage-0 step of a small fp32 field (8 levels of 2^15,
+    hidden 32, grid 32, 1024 rays, max_steps 128, 32 samples, compaction to
+    8192 points, TV on) on the card against the same step on the CPU, from
+    the same state with the same Stage0Randoms (no Monte Carlo decision
+    is left once the draws are fixed): loss within 1e-4 relative, each
+    gradient leaf (the encoder table included) within 1e-3 relative L2;
+    then one occupancy update with the same draws: grid and occupancy equal
+    on >= 99.9% of cells."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.config import Config, finalize
+    from mirres_restir_nerf_mesh_torch.data.provider import RayDataset
+    from mirres_restir_nerf_mesh_torch.data.synthetic import make_synthetic_frames
+    from mirres_restir_nerf_mesh_torch.models.nerf import NeRFSpec
+    from mirres_restir_nerf_mesh_torch.ops.occupancy import draw_occupancy
+    from mirres_restir_nerf_mesh_torch.train import stage0 as s0
+
+    cfg = finalize(Config(bound=1.0, num_rays=1024, max_steps=128, samples_per_ray=32,
+                          grid_size=32, adaptive_num_rays=True, num_points=8192,
+                          lambda_tv=1e-8))
+    spec = NeRFSpec(bound=1.0, hidden_dim=32, hidden_dim_color=32,
+                    grid_levels=STAGE0_CHECK_LEVELS,
+                    grid_log2_hashmap_size=15, grid_desired_resolution=128)
+    data = make_synthetic_frames(n_frames=8, H=64, W=64, bound=1.0)
+    s_cpu, s_gpu = RayDataset(data, 1.0, device="cpu"), RayDataset(data, 1.0, device=dev)
+    g = torch.Generator().manual_seed(seed + 4)
+    st_c = s0.init_state(g, cfg, spec, device="cpu")
+    st_c = s0.make_occ_update(cfg, spec)(st_c, g)
+    st_g = s0.TrainState(tree_to(st_c.params, dev), st_c.opt_state, tree_to(st_c.params, dev),
+                         type(st_c.occ)(*(x.to(dev) for x in st_c.occ)), st_c.step)
+    n_march = s0.march_candidates_for(cfg, s_cpu)
+    rnd = s0.draw_stage0_randoms(s_cpu, cfg, n_march, g)
+    out = {}
+    for name, st, smp, r in (("cpu", st_c, s_cpu, rnd), ("card", st_g, s_gpu, rnd.to(dev))):
+        out[name] = s0.loss_and_grads(st.params, st.occ.occ, smp.sample(r.sample), r, cfg, spec,
+                                      0, n_march)
+    lc, lg = float(out["cpu"][0]), float(out["card"][0])
+    grad_rel = [float((a.cpu().double() - b.double()).norm() / max(float(b.double().norm()),
+                                                                    1e-300))
+                for a, b in zip(out["card"][2], out["cpu"][2])]
+    draws = draw_occupancy(st_c.occ, cfg.bound, cfg.stochastic_interp, g)
+    occ_c = s0.make_occ_update(cfg, spec)(st_c, draws=draws).occ
+    occ_g = s0.make_occ_update(cfg, spec)(st_g, draws=type(draws)(
+        *(None if x is None else x.to(dev) for x in draws))).occ
+    grid_equal = float((occ_g.density_grid.cpu() == occ_c.density_grid).float().mean())
+    grid_close = float(torch.isclose(occ_g.density_grid.cpu(), occ_c.density_grid, rtol=1e-4,
+                                     atol=1e-6).float().mean())
+    occ_equal = float((occ_g.occ.cpu() == occ_c.occ).float().mean())
+    names = [k if isinstance(v, torch.Tensor) else f"{k}.{i}"
+             for k, v in sorted(st_c.params.items())
+             for i in range(1 if isinstance(v, torch.Tensor) else len(v))]
+    res = {"loss_cpu": lc, "loss_card": lg, "loss_rel": abs(lg - lc) / abs(lc),
+           "grad_rel_l2": dict(zip(names, grad_rel)),
+           "occ_grid_equal_share": grid_equal, "occ_grid_close_share": grid_close,
+           "occ_mask_equal_share": occ_equal,
+           "occ_mask_cells_differing": int((occ_g.occ.cpu() != occ_c.occ).sum())}
+    log("stage-0 reference check (card vs CPU, fp32): " + json.dumps(res))
+    fails = ["loss"] if res["loss_rel"] > 1e-4 else []
+    fails += [f"grad:{k}" for k, v in res["grad_rel_l2"].items() if not v <= 1e-3]
+    fails += ["occupancy grid"] if grid_close < 0.999 else []
+    fails += ["occupancy mask"] if occ_equal < 0.999 else []
+    if fails:
+        raise AssertionError(f"stage-0 reference check failed for {fails}")
+    return res
+
+
+def plant_k4_fault(kind: str, drop):
     """Wrap K4's launch: 'scale' multiplies every update by 1.01, 'drop'
-    skips the first of every three launches (one encode's backward a
-    step)."""
+    skips the launches for which drop(idx) holds.  -> a function that
+    removes the fault."""
     from mirres_restir_nerf_mesh_torch.ops import scatter
 
     orig = scatter.scatter_add_into
-    calls = [0]
 
     def faulty(out, idx, upd):
-        calls[0] += 1
         if kind == "scale":
             orig(out, idx, upd * 1.01)
-        elif calls[0] % 3 != 1:
+        elif not drop(idx):
             orig(out, idx, upd)
 
     scatter.scatter_add_into = faulty
+    return lambda: setattr(scatter, "scatter_add_into", orig)
+
+
+def every_third():
+    """drop rule of phase 5b: the first of every three launches (one
+    encode's backward a stage-1 step)."""
+    calls = [0]
+
+    def drop(idx):
+        calls[0] += 1
+        return calls[0] % 3 == 1
+
+    return drop
+
+
+def planted_fault_run(kind: str, seed: int, dev) -> int:
+    """``--plant-k4-fault``: phases 5b and 5d with the fault planted (in
+    5d, 'drop' skips the stochastic encode's backward, [P, L] row ids, and
+    keeps the TV loss's, whose weight of 1e-8 would hide it).  Exit 0 only
+    if 5d fails; 5b's verdict is printed (it passes a 1.01 scale)."""
+    import torch
+
+    v_small, f_small = bench_mesh(SMALL_FACES)
+    caught = {}
+    for phase, drop, run in (
+            ("5b", every_third(), lambda: check_train_reference(
+                v_small, f_small, torch.as_tensor(v_small, device=dev), seed, dev)),
+            ("5d", lambda idx: idx.dim() == 2 and idx.shape[1] == STAGE0_CHECK_LEVELS,
+             lambda: check_stage0_reference(seed, dev))):
+        undo = plant_k4_fault(kind, drop)
+        try:
+            run()
+            caught[phase] = False
+        except AssertionError as e:
+            caught[phase] = True
+            log(f"planted K4 fault '{kind}' caught by phase {phase}: {e}")
+        finally:
+            undo()
+        if not caught[phase]:
+            log(f"planted K4 fault '{kind}' passed phase {phase}")
+    return 0 if caught["5d"] else 1
 
 
 def main(argv=None) -> int:
@@ -1101,8 +1553,8 @@ def main(argv=None) -> int:
                          "under torch.profiler, and exit (no result line); works on a copy "
                          "of this file run in an older checkout of the port")
     ap.add_argument("--plant-k4-fault", choices=("scale", "drop"), default=None,
-                    help="run phase 5b alone with a fault planted in K4 (updates x 1.01, or "
-                         "one launch of three dropped); exit 0 only if the phase fails")
+                    help="run phases 5b and 5d alone with a fault planted in K4 (updates x "
+                         "1.01, or an encode's launch dropped); exit 0 only if 5d fails")
     args = ap.parse_args(argv)
 
     import torch
@@ -1143,16 +1595,7 @@ def main(argv=None) -> int:
         k3_route(args.seed, dev)
         return 0
     if args.plant_k4_fault:
-        v_small, f_small = bench_mesh(SMALL_FACES)
-        plant_k4_fault(args.plant_k4_fault)
-        try:
-            check_train_reference(v_small, f_small, torch.as_tensor(v_small, device=dev),
-                                  args.seed, dev)
-        except AssertionError as e:
-            log(f"planted K4 fault '{args.plant_k4_fault}' caught by phase 5b: {e}")
-            return 0
-        log(f"planted K4 fault '{args.plant_k4_fault}' passed phase 5b")
-        return 1
+        return planted_fault_run(args.plant_k4_fault, args.seed, dev)
 
     # ---- meshes, cameras, weights
     t0 = time.perf_counter()
@@ -1167,6 +1610,14 @@ def main(argv=None) -> int:
     P = H * W
     cam = camera(H, W, dev)
     log(f"clusters: bench {tuple(cm_big.prim.shape)}, small {tuple(cm_small.prim.shape)}")
+
+    marks = {"t": time.perf_counter()}
+
+    def phase_done(name):
+        """Print the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        log(f"phase {name}: {now - marks['t']:.1f} s")
+        marks["t"] = now
 
     # ---- 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1286,6 +1737,7 @@ def main(argv=None) -> int:
             check_state(state, aux)
         return times, state, aux, torch.cuda.max_memory_allocated() / 1e9
 
+    phase_done("3")
     # ---- 4. the main path: counters zeroed, frames rendered, counters read
     static_s = frame_static(f_small, H, W, FRAME_SPP, torch.bfloat16)
     zero_counts()
@@ -1337,6 +1789,7 @@ def main(argv=None) -> int:
     check_k3_launches("small-mesh frame", launches_s, K3_FRAME)
     del outs, out_s
 
+    phase_done("4")
     # ---- 4b. the lighter train step: counters zeroed, steps taken, counters read
     cfg = train_config(FRAME_SPP)
     topo = build_topology(f_big, v_big.shape[0])
@@ -1367,6 +1820,7 @@ def main(argv=None) -> int:
     del state, aux
     torch.cuda.empty_cache()
 
+    phase_done("4b")
     # ---- 4c. bench.py's own frame: ReSTIR + denoiser
     nominal_r = P * (1 + FRAME_SPP * RESTIR_RAYS_PER_SPP)
     torch.cuda.reset_peak_memory_stats()
@@ -1402,6 +1856,7 @@ def main(argv=None) -> int:
     del out_r
     torch.cuda.empty_cache()
 
+    phase_done("4c")
     # ---- 4d. bench.py's own train step
     cfg_r = train_config(FRAME_SPP, use_restir=True)
     zero_counts()
@@ -1432,6 +1887,7 @@ def main(argv=None) -> int:
     del state, aux
     torch.cuda.empty_cache()
 
+    phase_done("4d")
     # ---- 4e. bench.py's ReSTIR frame on the small mesh: the dense route
     zero_counts()
     times_rs, out_rs = timed_frames(static_rs, "small-mesh restir frame", prm=params_s, verts=vs)
@@ -1456,7 +1912,25 @@ def main(argv=None) -> int:
         raise AssertionError("small-mesh restir frame: uncertain_count != 0")
     check_k3_launches("small-mesh restir frame", launches_rs, K3_RESTIR_FRAME)
     del out_rs
+    torch.cuda.empty_cache()
 
+    phase_done("4e")
+    # ---- 4f. bench.py's stage-0 point; then K4 at its step's own launches
+    stage0, k4_calls, s0_levels = stage0_bench(dev, gen, (zero_counts, read_counts), out_dir,
+                                               args.profile)
+    launches_s0 = stage0["launches"]
+    k4_stage0 = check_scatter_stage0(k4_calls, s0_levels)
+    del k4_calls
+    for c in k4_stage0:
+        log("K4 scatter_add, stage 0: " + json.dumps(c))
+    torch.cuda.empty_cache()
+    phase_done("4f")
+
+    # ---- 4g. stage 0 as a user runs it: training, eval render, mesh export
+    learn = stage0_learn(dev, gen, (zero_counts, read_counts), out_dir)
+    torch.cuda.empty_cache()
+
+    phase_done("4g")
     # ---- 5. reference check: card vs CPU on a small fp32 frame
     Hs = Ws = 64
     cam_s = camera(Hs, Ws, "cpu")
@@ -1474,9 +1948,11 @@ def main(argv=None) -> int:
          != envlight.build_sampler(p_cpu.env).table).sum())
     log(f"env sampler table entries differing, card vs CPU: {agree['env_table_entries_differing']}")
 
+    phase_done("5")
     # ---- 5b. reference check: one train step, card vs CPU
     agree_train = check_train_reference(v_small, f_small, vs, args.seed, dev)
 
+    phase_done("5b")
     # ---- 5c. reference check: a ReSTIR frame, without and with the denoiser
     agree_restir = {}
     for iters in (0, 2):
@@ -1492,13 +1968,20 @@ def main(argv=None) -> int:
             got, ref, Hs * Ws, out_dir, label=f"ReSTIR 64x64 spp 2 fp32, denoise_iters {iters}",
             mc_within=None, npz=f"restir_reference_check_{iters}.npz")
 
+    phase_done("5c")
+    # ---- 5d. reference check: one stage-0 step and occupancy update
+    agree_stage0 = check_stage0_reference(args.seed, dev)
+
+    phase_done("5d")
     # ---- 6. results.  K1's headline is the direct-shadow batch, the shape of
     # 64 of the 69 launches of the lighter frame (the spatial cross-visibility
     # check is 32 of the ReSTIR frame's 37); K2's is the primary rays.
     k1, k2 = k1_checks[3], k2_checks[0]
     paths = {"frame": launches, "small_frame": launches_s, "train_step": launches_train,
              "restir_frame": launches_rf, "restir_train_step": launches_rt,
-             "small_restir_frame": launches_rs, "grid_trace_path": launches_grid}
+             "small_restir_frame": launches_rs, "grid_trace_path": launches_grid,
+             "stage0_step": launches_s0, "stage0_learning": learn["launches"],
+             "stage0_export": learn["export"]["launches"]}
     # K3's headlines: the primary rays (closest), the direct-shadow batch
     # (any hit: 64 of the lighter small-mesh frame's 66 any-hit launches)
     k3c, k3a = k3_checks[0], k3_checks[3]
@@ -1548,12 +2031,26 @@ def main(argv=None) -> int:
              bound_ms=k4["bound_ms"], bound_by=k4["bound_by"], library_ms=k4["library_ms"],
              library_device_ms=k4["library_device_ms"], checks=[k4]),
     ]
+    # K4's stage-0 rows: each shape is one of the K4_STAGE0_LAUNCHES launches
+    # of every step of phase 4f
+    for c in k4_stage0:
+        kernels.append(dict(
+            name=f"scatter_add (K4), stage-0 {c['what']}", route="cuda",
+            source="mirres_restir_nerf_mesh_torch/csrc/scatter_add.cu",
+            replaces="mirres_restir_nerf_mesh_tpu/ops/pallas_scatter.py:37",
+            launches=launches_s0["scatter_add"] // K4_STAGE0_LAUNCHES,
+            launches_by_path={"stage0_step": launches_s0["scatter_add"] // K4_STAGE0_LAUNCHES},
+            max_abs_err=c["max_abs_err"], ms=c["ms"], device_ms=c["device_ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            library_ms=c["library_ms"], library_device_ms=c["library_device_ms"], checks=[c]))
     if out_dir is not None:
         (out_dir / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": kernels, "frame": frame,
              "small_frame": small, "small_restir_frame": small_r, "train_step": train, "restir_frame": frame_r, "restir_train_step": train_r,
              "reference_check": agree,
-             "train_reference_check": agree_train, "restir_reference_check": agree_restir},
+             "train_reference_check": agree_train, "restir_reference_check": agree_restir,
+             "stage0_step": stage0, "stage0_learning": learn,
+             "stage0_reference_check": agree_stage0},
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,6 +13,11 @@ the step), read by duck typing with ``numpy.asarray`` on its leaves, becomes
 the port's ``train.stage1.Stage1State`` with each group's Adam ``count``,
 ``mu`` and ``nu``.  A JAX checkpoint can so resume in the port.
 ``state_to_numpy`` is its inverse in numpy.
+
+``stage0_state_from_jax`` / ``stage0_state_to_numpy`` do the same for the
+reference's stage-0 ``TrainState``: the NeRF params (with ``variance`` in
+sdf mode), the ``scale_by_adam`` count / mu / nu inside its optax chain,
+the EMA params, the ``OccupancyState`` and the step.
 """
 
 from __future__ import annotations
@@ -23,8 +28,11 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .ops.occupancy import OccupancyState
 from .render.stage1 import Stage1Params
-from .train.stage1 import GROUPS, AdamState, Stage1State
+from .train import stage0
+from .train.stage0 import AdamState
+from .train.stage1 import GROUPS, Stage1State
 
 
 def _to_torch(x: Any, dev: torch.device):
@@ -68,6 +76,15 @@ def _jax_leaves(x) -> list:
     return [x]
 
 
+def _adam_from_jax(inner, dev) -> AdamState:
+    """The ScaleByAdamState (count, mu, nu) inside an optax chain state."""
+    chain = getattr(inner, "inner_state", inner)
+    (adam,) = [st for st in chain if hasattr(st, "mu") and hasattr(st, "nu")]
+    return AdamState(count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32),
+                     mu=[_to_torch(x, dev) for x in _jax_leaves(adam.mu)],
+                     nu=[_to_torch(x, dev) for x in _jax_leaves(adam.nu)])
+
+
 def state_from_jax(jstate, device="cuda") -> Stage1State:
     """The reference's stage-1 ``Stage1State`` -> the port's, on the device.
     Each optimizer group's state is the ``ScaleByAdamState`` (count, mu, nu)
@@ -75,14 +92,7 @@ def state_from_jax(jstate, device="cuda") -> Stage1State:
     dev = resolve_device(device)
     p = jstate.params
     params = params_from_jax(p.nerf, p.mat, p.env, p.offsets, device=dev)
-    opt = {}
-    for g in GROUPS:
-        inner = jstate.opt_state.inner_states[g]
-        chain = getattr(inner, "inner_state", inner)
-        (adam,) = [st for st in chain if hasattr(st, "mu") and hasattr(st, "nu")]
-        opt[g] = AdamState(count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32),
-                           mu=[_to_torch(x, dev) for x in _jax_leaves(adam.mu)],
-                           nu=[_to_torch(x, dev) for x in _jax_leaves(adam.nu)])
+    opt = {g: _adam_from_jax(jstate.opt_state.inner_states[g], dev) for g in GROUPS}
     return Stage1State(params, opt, torch.tensor(int(np.asarray(jstate.step)), dtype=torch.int32))
 
 
@@ -92,3 +102,28 @@ def state_to_numpy(state: Stage1State):
     opt = {g: {"count": int(st.count), "mu": _to_numpy(st.mu), "nu": _to_numpy(st.nu)}
            for g, st in state.opt_state.items()}
     return params_to_numpy(state.params), opt, int(state.step)
+
+
+def stage0_state_from_jax(jstate, device="cuda") -> stage0.TrainState:
+    """The reference's stage-0 ``TrainState`` -> the port's, on the device."""
+    dev = resolve_device(device)
+    occ = jstate.occ
+    return stage0.TrainState(
+        params=_to_torch(jstate.params, dev), opt_state=_adam_from_jax(jstate.opt_state, dev),
+        ema_params=_to_torch(jstate.ema_params, dev),
+        occ=OccupancyState(density_grid=_to_torch(occ.density_grid, dev),
+                           occ=torch.tensor(np.asarray(occ.occ, dtype=np.uint8), device=dev),
+                           mean_density=_to_torch(occ.mean_density, dev)),
+        step=torch.tensor(int(np.asarray(jstate.step)), dtype=torch.int32))
+
+
+def stage0_state_to_numpy(state: stage0.TrainState):
+    """-> {"params", "opt": {"count", "mu", "nu"}, "ema_params", "occ":
+    {"density_grid", "occ", "mean_density"}, "step"} in numpy; mu / nu in
+    the reference's leaf order."""
+    st = state.opt_state
+    return {"params": _to_numpy(state.params),
+            "opt": {"count": int(st.count), "mu": _to_numpy(st.mu), "nu": _to_numpy(st.nu)},
+            "ema_params": _to_numpy(state.ema_params),
+            "occ": {k: _to_numpy(v) for k, v in state.occ._asdict().items()},
+            "step": int(state.step)}

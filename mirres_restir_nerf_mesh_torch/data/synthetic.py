@@ -1,7 +1,8 @@
 """Procedural test scene (counterpart of mirres_restir_nerf_mesh_tpu/data/synthetic.py):
-orbit cameras around an analytically ray-traced lambertian sphere, and the
+orbit cameras around an analytically ray-traced lambertian sphere, the
 whole-frame batch that the stage-1 train step takes (the reference's
-``RayDataset.frame_rays``)."""
+``RayDataset.frame_rays``), and the same frames as ``FrameData`` for
+stage 0's ``RayDataset`` (``make_synthetic_frames``)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .provider import FrameData, compute_mvps
 from .rays import get_rays
 
 
@@ -77,6 +79,15 @@ def make_synthetic_dataset(n_frames: int = 16, H: int = 64, W: int = 64, radius:
     reference's make_synthetic_dataset (same seed -> same frames)."""
     poses, intrinsics = synthetic_cameras(n_frames, H, W, radius, seed)
     return poses, intrinsics, np.stack([render_sphere_image(p, intrinsics, H, W) for p in poses])
+
+
+def make_synthetic_frames(n_frames: int = 16, H: int = 64, W: int = 64, radius: float = 2.0,
+                          bound: float = 1.0, seed: int = 0) -> FrameData:
+    """The frames of make_synthetic_dataset as FrameData (the reference's
+    make_synthetic_dataset)."""
+    poses, intrinsics, images = make_synthetic_dataset(n_frames, H, W, radius, seed)
+    return FrameData(images=images, poses=poses, intrinsics=intrinsics, H=H, W=W,
+                     mvps=compute_mvps(poses, intrinsics, H, W, bound))
 
 
 def frame_batch(pose: np.ndarray, intrinsics: np.ndarray, image: np.ndarray, device,

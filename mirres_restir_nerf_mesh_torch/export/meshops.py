@@ -1,5 +1,5 @@
 """ctypes bindings for the native mesh runtime ``native/meshops.cpp``: marching
-tetrahedra and QEM decimation (the port's own copy of the JAX package's
+tetrahedra, QEM decimation and the removal of small components (the port's own copy of the JAX package's
 numpy-only wrapper).  The library ``native/libmeshops.so`` is built with
 ``native/build.sh`` when missing; buffers are plain numpy arrays.
 """
@@ -36,6 +36,11 @@ def _lib() -> ctypes.CDLL:
         lib.decimate_qem.restype = ctypes.c_int
         lib.decimate_qem.argtypes = [
             _FP, ctypes.c_int64, _IP, ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(_FP), _I64P, ctypes.POINTER(_IP), _I64P,
+        ]
+        lib.clean_components.restype = ctypes.c_int
+        lib.clean_components.argtypes = [
+            _FP, ctypes.c_int64, _IP, ctypes.c_int64, ctypes.c_int32, ctypes.c_float,
             ctypes.POINTER(_FP), _I64P, ctypes.POINTER(_IP), _I64P,
         ]
         lib.mesh_free.argtypes = [ctypes.c_void_p]
@@ -83,4 +88,22 @@ def decimate(verts: np.ndarray, tris: np.ndarray, target_faces: int) -> Tuple[np
                            ctypes.byref(pt), ctypes.byref(nt))
     if ret != 0:
         raise RuntimeError(f"decimate_qem failed ({ret})")
+    return _collect(lib, pv, nv, pt, nt)
+
+
+def clean_components(verts: np.ndarray, tris: np.ndarray, min_faces: int = 8,
+                     min_diameter: float = 0.05) -> Tuple[np.ndarray, np.ndarray]:
+    """Drop connected components with fewer than min_faces triangles or a
+    diameter below min_diameter."""
+    lib = _lib()
+    v = np.ascontiguousarray(verts, np.float32)
+    t = np.ascontiguousarray(tris, np.int32)
+    pv, pt = _FP(), _IP()
+    nv, nt = ctypes.c_int64(), ctypes.c_int64()
+    ret = lib.clean_components(v.ctypes.data_as(_FP), v.shape[0], t.ctypes.data_as(_IP),
+                               t.shape[0], int(min_faces), ctypes.c_float(min_diameter),
+                               ctypes.byref(pv), ctypes.byref(nv), ctypes.byref(pt),
+                               ctypes.byref(nt))
+    if ret != 0:
+        raise RuntimeError(f"clean_components failed ({ret})")
     return _collect(lib, pv, nv, pt, nt)

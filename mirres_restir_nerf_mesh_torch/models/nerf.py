@@ -1,7 +1,11 @@
-"""Instant-NGP-style radiance field, forward (counterpart of
-mirres_restir_nerf_mesh_tpu/models/nerf.py: ``density``, ``color``,
-``rgb_only``, ``init_nerf``).  MLPs run in ``compute_dtype`` (bf16 on the
-card); params stay float32.  Stage-0 parts (normals, NeuS alpha) come later.
+"""Instant-NGP-style radiance field (counterpart of
+mirres_restir_nerf_mesh_tpu/models/nerf.py): hash grid -> sigma MLP
+(``trunc_exp`` density, or a raw SDF value with a ``variance`` parameter in
+sdf mode) and geometry features -> SH-direction colour MLP.  MLPs run in
+``compute_dtype`` (bf16 on the card); params stay float32.  Normals by
+finite differences or by autograd with respect to the position (a graph
+the SDF losses differentiate once more, with respect to the params), and
+the NeuS SDF -> alpha conversion.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import torch
 from ..device import resolve_device
 from ..ops.hashgrid import HashGridSpec, hashgrid_encode, init_hashgrid
 from ..ops.sh import sh_encode
-from ..utils.math import trunc_exp
+from ..utils.math import safe_normalize, trunc_exp
 
 
 @dataclass(frozen=True)
@@ -78,10 +82,13 @@ def _mlp(ws, h, dtype):
 
 
 def density(params: Dict[str, Any], x: torch.Tensor, spec: NeRFSpec,
-            stochastic_u: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """x [N,3] -> {'sigma': [N], 'geo_feat': [N,15]} (raw SDF in sdf mode)."""
+            stochastic_u: Optional[torch.Tensor] = None,
+            max_level=None) -> Dict[str, torch.Tensor]:
+    """x [N,3] -> {'sigma': [N], 'geo_feat': [N,15]} (raw SDF in sdf mode).
+    stochastic_u [N, 3]: the one-corner hash-grid estimator's uniforms;
+    max_level: progressive levels (hashgrid_encode)."""
     h = hashgrid_encode(params["encoder"], x, spec.grid, bound=spec.bound,
-                        stochastic_u=stochastic_u)
+                        stochastic_u=stochastic_u, max_level=max_level)
     h = _mlp(params["sigma_net"], h, spec.compute_dtype)
     raw = h[..., 0]
     return {"sigma": raw if spec.sdf else trunc_exp(raw), "geo_feat": h[..., 1:]}
@@ -98,3 +105,50 @@ def rgb_only(params: Dict[str, Any], x: torch.Tensor, d: torch.Tensor,
              spec: NeRFSpec) -> torch.Tensor:
     """Color query without sigma (used by stage 1)."""
     return color(params, density(params, x, spec)["geo_feat"], d, spec)
+
+
+def forward(params: Dict[str, Any], x: torch.Tensor, d: torch.Tensor, spec: NeRFSpec,
+            max_level=None, stochastic_u: Optional[torch.Tensor] = None):
+    """Full field: sigma [N], rgb [N,3]."""
+    res = density(params, x, spec, stochastic_u=stochastic_u, max_level=max_level)
+    return res["sigma"], color(params, res["geo_feat"], d, spec)
+
+
+def normal_fd(params: Dict[str, Any], x: torch.Tensor, spec: NeRFSpec,
+              epsilon: float = 1e-4) -> torch.Tensor:
+    """Central finite-difference gradient of sigma (or the SDF), [N,3]."""
+    def sig(p):
+        return density(params, torch.clamp(p, -spec.bound, spec.bound), spec)["sigma"]
+
+    grads = []
+    for ax in range(3):
+        e = torch.zeros((1, 3), device=x.device)
+        e[0, ax] = epsilon
+        grads.append(0.5 * (sig(x + e) - sig(x - e)) / epsilon)
+    return torch.stack(grads, dim=-1)
+
+
+def normal_autodiff(params: Dict[str, Any], x: torch.Tensor, spec: NeRFSpec,
+                    max_level=None) -> torch.Tensor:
+    """Gradient of sigma (or the SDF) with respect to the position, [N,3].
+    Built with create_graph when grad mode is on, so that a loss on the
+    normal (eikonal) reaches the params; computed under enable_grad so an
+    eval render (no_grad) gets it too."""
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        p = x.detach().requires_grad_(True)
+        sig = density(params, p, spec, max_level=max_level)["sigma"]
+        (g,) = torch.autograd.grad(sig.sum(), p, create_graph=create)
+    return g if create else g.detach()
+
+
+def neus_alpha(sdf: torch.Tensor, variance: torch.Tensor, normal: torch.Tensor,
+               dirs: torch.Tensor, dts: torch.Tensor, cos_anneal_ratio=1.0) -> torch.Tensor:
+    """NeuS SDF -> alpha of each sample, [N]."""
+    inv_s = torch.clamp(torch.exp(variance * 10.0), 1e-6, 1e6)
+    true_cos = torch.sum(dirs * safe_normalize(normal), dim=-1)
+    iter_cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - cos_anneal_ratio)
+                 + torch.relu(-true_cos) * cos_anneal_ratio)
+    prev_cdf = torch.sigmoid((sdf - iter_cos * dts * 0.5) * inv_s)
+    next_cdf = torch.sigmoid((sdf + iter_cos * dts * 0.5) * inv_s)
+    return torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)

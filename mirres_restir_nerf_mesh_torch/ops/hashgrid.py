@@ -21,6 +21,8 @@ one scatter-add into the whole table, kernel K4 on the card
 (ops/scatter.py).  The reference splits that backward per level, and sends
 its packed dense levels through XLA's scatter, only because its MXU one-hot
 must fit VMEM; atomics have no such limit and compute the same sums.
+``hashgrid_tv_loss`` reads all its rows through one ``GatherRows`` as well,
+so its table gradient is one K4 launch too.
 """
 
 from __future__ import annotations
@@ -139,7 +141,10 @@ def encode_rows(x: torch.Tensor, spec: HashGridSpec, bound: float = 1.0,
     """The table rows an encode reads: (rows [N, 8L] int32 absolute row ids,
     level-major, and the trilinear weights [N, L, 8]) on the exact path,
     (rows [N, L], None) on the stochastic one."""
-    x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
+    # clip as jnp.clip does: a point on the box face takes half the gradient
+    # (it matters to the normal by autograd of a sample clamped to the box)
+    x01 = (x + bound) / (2.0 * bound)
+    x01 = torch.minimum(torch.maximum(x01, x01.new_zeros(())), x01.new_ones(()))
     offsets, scales, resolutions, dense = spec.level_meta()
     corners = torch.as_tensor(CORNERS, device=x.device)                 # [8,3]
     cmask = corners == 1
@@ -167,15 +172,50 @@ def encode_rows(x: torch.Tensor, spec: HashGridSpec, bound: float = 1.0,
 
 
 def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpec,
-                    bound: float = 1.0, stochastic_u: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    bound: float = 1.0, stochastic_u: Optional[torch.Tensor] = None,
+                    max_level=None) -> torch.Tensor:
     """Encode x in [-bound, bound]^3 -> [N, num_levels*level_dim].
 
     stochastic_u: [N, 3] uniforms for the one-corner estimator (one triple
-    per point, shared across levels); None = exact trilinear interpolation."""
+    per point, shared across levels); None = exact trilinear interpolation.
+    max_level: levels >= max_level output zeros (progressive levels; an int
+    or a scalar tensor)."""
     N, L, C = x.shape[0], spec.num_levels, embeddings.shape[1]
     idx, w = encode_rows(x, spec, bound, stochastic_u)
     vals = GatherRows.apply(embeddings, idx)                            # [N,K,C]
     if w is None:
-        return vals.reshape(N, L * C)
-    return torch.sum(vals.reshape(N, L, 8, C) * w[..., None], dim=2).reshape(N, L * C)
+        feats = vals.reshape(N, L, C)
+    else:
+        feats = torch.sum(vals.reshape(N, L, 8, C) * w[..., None], dim=2)
+    if max_level is not None:
+        lvl = torch.arange(L, device=x.device)
+        feats = feats * (lvl < torch.as_tensor(max_level, device=x.device)).to(feats.dtype)[:, None]
+    return feats.reshape(N, L * C)
+
+
+def hashgrid_tv_loss(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpec,
+                     bound: float = 1.0, max_points: int = 4096) -> torch.Tensor:
+    """Total variation at sampled points: for the first max_points points'
+    base grid point at every level, the mean squared difference to its +1
+    neighbour along each axis, summed over levels and axes.  The 4 rows a
+    level reads per point (base, +x, +y, +z) of all levels go through one
+    ``GatherRows`` ([P, 4L] absolute row ids), so the gradient is one
+    scatter-add (K4 on the card)."""
+    x = x[:max_points]
+    x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
+    offsets, scales, resolutions, dense = spec.level_meta()
+    steps = torch.tensor([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], device=x.device)
+    cols = []
+    for lvl in range(spec.num_levels):
+        size = int(offsets[lvl + 1] - offsets[lvl])
+        pg = torch.floor(x01 * float(scales[lvl]) + 0.5).to(torch.int64)
+        pgc = pg[:, None, :] + steps[None]                                  # [P,4,3]
+        cols.append(int(offsets[lvl]) +
+                    level_index(pgc, bool(dense[lvl]), int(resolutions[lvl]), size))
+    vals = GatherRows.apply(embeddings, torch.cat(cols, dim=1).to(torch.int32))   # [P,4L,C]
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lvl in range(spec.num_levels):
+        base = vals[:, 4 * lvl]
+        for d in range(1, 4):
+            total = total + torch.mean((vals[:, 4 * lvl + d] - base) ** 2)
+    return total

@@ -39,40 +39,15 @@ from ..models import envlight
 from ..models import material as material_mod
 from ..render.stage1 import FrameRandoms, Stage1Params, Stage1Static, render_stage1
 from . import losses as L
-from .stage0 import lr_schedule
+from .stage0 import AdamState, adam_init, adam_update, lr_schedule, tree_leaves, tree_unflatten
 
 GROUPS = ("net", "vert", "mat", "mat_enc", "light")
-B1, B2 = 0.9, 0.999
-
-
-class AdamState(NamedTuple):
-    count: torch.Tensor          # int32 scalar: steps taken
-    mu: List[torch.Tensor]
-    nu: List[torch.Tensor]
 
 
 class Stage1State(NamedTuple):
     params: Stage1Params
     opt_state: Dict[str, AdamState]
     step: torch.Tensor           # int32 scalar
-
-
-def tree_leaves(tree) -> List[torch.Tensor]:
-    """Leaves of nested dicts / lists in jax.tree.leaves order (sorted keys)."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
-def tree_unflatten(tree, leaves) -> Any:
-    """Same structure as ``tree`` with ``leaves`` (an iterator) in its slots."""
-    if isinstance(tree, dict):
-        return {k: tree_unflatten(tree[k], leaves) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return [tree_unflatten(v, leaves) for v in tree]
-    return next(leaves)
 
 
 def group_leaves(params: Stage1Params) -> Dict[str, List[torch.Tensor]]:
@@ -116,39 +91,15 @@ class Stage1Optimizer:
         }
 
     def init(self, params: Stage1Params) -> Dict[str, AdamState]:
-        out = {}
-        for g, leaves in group_leaves(params).items():
-            out[g] = AdamState(count=torch.zeros((), dtype=torch.int32),
-                               mu=[torch.zeros_like(x) for x in leaves],
-                               nu=[torch.zeros_like(x) for x in leaves])
-        return out
+        return {g: adam_init(leaves) for g, leaves in group_leaves(params).items()}
 
-    @torch.no_grad()
     def step(self, params: Stage1Params, grads: Dict[str, List[Optional[torch.Tensor]]],
              state: Dict[str, AdamState]) -> Tuple[Stage1Params, Dict[str, AdamState]]:
         new_leaves, new_state = {}, {}
         for g, leaves in group_leaves(params).items():
-            spec, st = self.groups[g], state[g]
-            count = st.count.cpu()
-            # float32 scalars, as optax computes them: the lr at the count
-            # before the step, the bias corrections at count + 1
-            neg_lr = -float(spec.lr(count))
-            count_inc = count + 1
-            bc1 = float(1.0 - torch.tensor(B1, dtype=torch.float32) ** count_inc)
-            bc2 = float(1.0 - torch.tensor(B2, dtype=torch.float32) ** count_inc)
-            outs, mus, nus = [], [], []
-            for p, gr, mu, nu in zip(leaves, grads[g], st.mu, st.nu):
-                gr = torch.zeros_like(p) if gr is None else gr
-                if spec.pre_scale != 1.0:
-                    gr = spec.pre_scale * gr
-                mu = (1 - B1) * gr + B1 * mu
-                nu = (1 - B2) * (gr ** 2) + B2 * nu
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + spec.eps)
-                outs.append(p + neg_lr * u)
-                mus.append(mu)
-                nus.append(nu)
-            new_leaves[g] = outs
-            new_state[g] = AdamState(count=count_inc.to(torch.int32), mu=mus, nu=nus)
+            spec = self.groups[g]
+            new_leaves[g], new_state[g] = adam_update(leaves, grads[g], state[g], spec.lr,
+                                                      spec.eps, spec.pre_scale)
         return params_from_groups(params, new_leaves), new_state
 
 

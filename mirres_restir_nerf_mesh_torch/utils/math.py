@@ -26,10 +26,23 @@ def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:
                        1.055 * (torch.clamp_min(x, 1e-8) ** (1.0 / 2.4)) - 0.055)
 
 
+class TruncExp(torch.autograd.Function):
+    """exp whose gradient is taken at the input clamped to [-15, 15]
+    (the reference's custom_vjp ``trunc_exp``): g * exp(clip(x, -15, 15))."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """Forward of the reference's trunc_exp (its clamped gradient comes with
-    the training slice)."""
-    return torch.exp(x)
+    return TruncExp.apply(x)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -254,6 +254,30 @@ def test_scatter_add_kernel_matches_plain(dev):
     assert scatter_within(k, idx_d, upd, rows)
 
 
+def test_scatter_add_kernel_stage0_encode_shape(dev):
+    """K4 at the stage-0 train step's encode backward: 262,144 points x 16
+    levels of one-corner row ids ([N, L]) into the 6,119,864-row NeRF table
+    (16 levels of 2^19), points clustered along rays as a march gives them."""
+    spec = hashgrid.HashGridSpec(num_levels=16, base_resolution=16, log2_hashmap_size=19,
+                                 desired_resolution=2048)
+    assert spec.n_params == 6_119_864
+    g = torch.Generator(device=dev).manual_seed(7)
+    o = torch.randn((8192, 1, 3), generator=g, device=dev)
+    o = o / o.norm(dim=-1, keepdim=True) * 2.0
+    tgt = torch.rand((8192, 1, 3), generator=g, device=dev) - 0.5
+    ts = torch.rand((8192, 32, 1), generator=g, device=dev) * 0.8 + 0.6
+    x = torch.clamp(o + (tgt - o) / 2.0 * ts, -1.0, 1.0).reshape(-1, 3)
+    idx, _ = hashgrid.encode_rows(x, spec, stochastic_u=torch.rand(x.shape, generator=g,
+                                                                   device=dev))
+    assert tuple(idx.shape) == (262_144, 16)
+    upd = torch.randn((262_144, 16, 2), generator=g, device=dev)
+    before = scatter.scatter_add.launches
+    k = scatter.scatter_add(idx, upd, spec.n_params)
+    torch.cuda.synchronize()
+    assert scatter.scatter_add.launches == before + 1
+    assert scatter_within(k, idx, upd, spec.n_params)
+
+
 def test_gather_rows_backward_launches_k4(dev):
     spec = hashgrid.HashGridSpec(num_levels=4, base_resolution=16, log2_hashmap_size=12,
                                  desired_resolution=128)

@@ -193,3 +193,71 @@ def small_spec_kwargs():
     """Narrow field widths for the parity tests."""
     return dict(hidden_dim=16, hidden_dim_color=16, grid_levels=4, grid_log2_hashmap_size=12,
                 grid_desired_resolution=32)
+
+
+def stage0_spec_kwargs():
+    """The stage-0 parity tests' field: 8 levels of 2^15, hidden 32."""
+    return dict(hidden_dim=32, hidden_dim_color=32, grid_levels=8, grid_log2_hashmap_size=15,
+                grid_desired_resolution=128)
+
+
+def sample_draws_jax(k_batch, jsampler, num_rays):
+    """RayDataset.sample's draws from its key (single pixels), as the
+    port's SampleDraws."""
+    import jax
+
+    from mirres_restir_nerf_mesh_torch.data.provider import SampleDraws
+
+    k_img, k_pix, k_bg = jax.random.split(k_batch, 3)
+    n_frames = jsampler.images.shape[0]
+    img = jax.random.randint(k_img, (num_rays,), 0, n_frames)
+    pix = jax.random.randint(k_pix, (num_rays,), 0, jsampler.H * jsampler.W)
+    sparse = {}
+    if jsampler.sparse_coords is not None:
+        k_sd, k_f, k_m = jax.random.split(k_bg, 3)
+        sparse = dict(use_sparse=t(jax.random.uniform(k_sd, ()) < 0.1),
+                      sparse_frame=t(jax.random.randint(k_f, (), 0, n_frames), np.int64),
+                      sparse_m=t(jax.random.randint(k_m, (num_rays,), 0,
+                                                    jsampler.sparse_coords.shape[1]), np.int64))
+    bg = None
+    if jsampler.background == "random" and jsampler.images.shape[-1] == 4:
+        bg = t(jax.random.uniform(k_bg, (num_rays, 3)))
+    return SampleDraws(img_idx=t(img, np.int64), pix_idx=t(pix, np.int64), bg=bg, **sparse)
+
+
+def stage0_randoms_jax(key, jsampler, cfg, n_march):
+    """make_train_step's draws from a step key (k_batch, k_perturb =
+    split(key); k_perturb -> march noise and stochastic key), as the port's
+    Stage0Randoms."""
+    import jax
+
+    from mirres_restir_nerf_mesh_torch.render.volume import field_points
+    from mirres_restir_nerf_mesh_torch.train.stage0 import Stage0Randoms
+
+    k_batch, k_perturb = jax.random.split(key)
+    N = cfg.num_rays
+    k_march, k_stoch = jax.random.split(k_perturb)
+    S = cfg.max_steps if n_march is None else min(n_march, cfg.max_steps)
+    P = field_points(N, min(cfg.samples_per_ray, S),
+                     cfg.num_points if cfg.adaptive_num_rays else None)
+    su = t(jax.random.uniform(k_stoch, (P, 3))) if cfg.stochastic_interp else None
+    return Stage0Randoms(sample_draws_jax(k_batch, jsampler, N),
+                         noise=t(jax.random.uniform(k_march, (N,))), stochastic_u=su)
+
+
+def occupancy_draws_jax(key, C, H, bound, stochastic):
+    """update_occupancy's jitter (per cascade from fold_in(key, cas)) and
+    make_occ_update's stochastic uniforms (fold_in(key, 777)) as the port's
+    OccupancyDraws."""
+    import jax
+
+    from mirres_restir_nerf_mesh_torch.ops.occupancy import OccupancyDraws
+
+    jit = []
+    for cas in range(C):
+        half = min(2.0 ** cas, bound) / H
+        jit.append(np.asarray(jax.random.uniform(jax.random.fold_in(key, cas), (H ** 3, 3),
+                                                 minval=-half, maxval=half)))
+    su = (t(jax.random.uniform(jax.random.fold_in(key, 777), (H ** 3, 3))) if stochastic
+          else None)
+    return OccupancyDraws(jitter=t(np.stack(jit)), stochastic_u=su)
