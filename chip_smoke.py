@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one NVIDIA card: the stage-1 forward
-frame and train step, with and without ReSTIR DI, and stage 0 (the
-radiance-field train step, occupancy update, eval render and mesh export).
+frame and train step, with and without ReSTIR DI, stage 0 (the
+radiance-field train step, occupancy update, eval render and mesh export),
+and the command line a user runs (stage 0, stage 1, test renders,
+albedo_eval).
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
     python3 chip_smoke.py --k3-route    (the dense route alone; see k3_route)
@@ -116,6 +118,26 @@ Phases (any failure exits non-zero):
    visibility culling: a non-empty mesh whose median vertex radius lies
    within 20% of the sphere's 0.5, and one closest-hit launch a training
    view (K1, or K3 for a mesh of at most 8192 slots).
+4h. The CLI as a user runs it (the counters zeroed before and read after
+   each run): the synthetic sphere written as a blender-format scene (12
+   train, 2 val, 2 test frames of 128^2 RGBA through the port's PNG
+   writer; bench.py's sky + sun as an .hdr through its RGBE writer), then
+   ``mirres_restir_nerf_mesh_torch.main.main`` three times: stage 0 with
+   -O at the default widths (500 iterations, marching grid 256), gates:
+   val PSNR above 15, a mesh of median vertex radius within 20% of 0.5,
+   2 K4 launches a step, one closest hit a training view in save_mesh, a
+   checkpoint; stage 1 with BRDF and ReSTIR (10 iterations, 1024^2
+   textures, fp32), gates: loss finite, the OBJ, textures and checkpoint
+   written, 3 K4 launches a step and the tracer's launches of every frame
+   (steps and val renders: 37 K1 on the tile route, or 3 closest + 34 any
+   K3 on the dense route); the checkpoint loaded into a CPU Trainer with
+   every leaf equal; the test renders with relighting (spp as trained),
+   gates: test()'s artifact set for 2 frames, every EXR finite, the
+   tracer's launches, no K4; then albedo_eval on the kd EXRs against the
+   scene's albedo inside its alpha, a finite PSNR.  Per run: seconds,
+   it/s under the Trainer, faces, route, launches, peak memory, the seconds
+   of each eval frame and stage-1 step, save_mesh, and export_stage1 by
+   phase (atlas, raster, material, inpaint, write).
 5. Reference check: a 64x64, spp-2 frame of the small mesh in fp32 on the
    card against the same frame on the CPU (the plain versions, which the
    CPU tests hold against the JAX package), same weights and randoms.
@@ -1412,6 +1434,311 @@ def stage0_learn(dev, gen, counts, out_dir):
     return res
 
 
+# phase 4h: the CLI as a user runs it.  A blender-format scene of the
+# synthetic sphere (the JAX package's CLI test's cameras, tests/test_cli_e2e.py:
+# 12 train, 2 val, 2 test frames of 128^2 RGBA; with ssaa 2 stage 1 renders
+# 256^2, bench.py's pixel count), then main() for stage 0, stage 1 and the
+# test renders, then albedo_eval.
+CLI_HW = 128
+CLI_SPLITS = (("train", 12, 0), ("val", 2, 1), ("test", 2, 2))
+CLI_STAGE0_ITERS = 500
+CLI_STAGE1_ITERS = 10
+# the marching grid of 4h's save_mesh.  Its visibility culling keeps only
+# the faces a training pixel's closest hit lands on (the reference's rule);
+# the sphere covers ~2,200 pixels of a 128^2 view, so at 256^3 every seen
+# face is isolated and the cleanup drops them all, while at 64^3 the seen
+# faces join
+CLI_MCUBES_RESO = 64
+CLI_TEXTURE = 1024
+# data/synthetic.py render_sphere_image's albedo.  Constant, so albedo_eval's
+# per-channel median scale maps any spatially constant prediction onto it:
+# its PSNR here checks the plumbing, not the albedo learned
+CLI_ALBEDO = (0.8, 0.3, 0.2)
+CLI_SPP = 32                     # the Config default
+CLI_MIN_VAL_PSNR = 15.0
+CLI_RADIUS = (0.5, 0.1)          # the sphere's radius, +-20% (4g's gate)
+CLI_ARTIFACTS = ("rgb.png", "depth.png", "brdf.png", "kd.exr", "ks.exr", "normal.exr",
+                 "diffuse.exr", "specular.exr")
+
+
+def write_blender_scene(root: Path) -> None:
+    """transforms_{split}.json and RGBA PNGs (the port's writer) of the
+    synthetic sphere, and under root/albedo each test frame's ground-truth
+    albedo (the sphere's constant albedo inside its alpha)."""
+    import numpy as np
+
+    from mirres_restir_nerf_mesh_torch.data.synthetic import orbit_pose, render_sphere_image
+    from mirres_restir_nerf_mesh_torch.utils.image_io import write_png
+
+    H = W = CLI_HW
+    fx = 0.8 * W
+    intr = np.array([fx, fx, W / 2, H / 2], np.float32)
+    (root / "albedo").mkdir(parents=True, exist_ok=True)
+    for split, n, seed in CLI_SPLITS:
+        (root / split).mkdir(parents=True, exist_ok=True)
+        rng = np.random.RandomState(seed)
+        frames = []
+        for k in range(n):
+            theta = np.pi / 3 + rng.uniform(0, np.pi / 3)
+            phi = 2 * np.pi * k / n + rng.uniform(0, 0.3)
+            pose = orbit_pose(theta, phi, radius=2.0)
+            img = render_sphere_image(pose, intr, H, W)
+            write_png(str(root / split / f"r_{k}.png"), (img * 255).astype(np.uint8))
+            frames.append({"file_path": f"{split}/r_{k}", "transform_matrix": pose.tolist()})
+            if split == "test":
+                alb = np.zeros((H, W, 4), np.float32)
+                alb[..., :3] = CLI_ALBEDO
+                alb[..., 3] = img[..., 3]
+                write_png(str(root / "albedo" / f"r_{k:04d}_albedo.png"),
+                          np.round(alb * 255).astype(np.uint8))
+        (root / f"transforms_{split}.json").write_text(json.dumps(
+            {"camera_angle_x": float(2 * np.arctan(0.5 * W / fx)), "frames": frames}))
+
+
+def cli_run(dev, counts, out_dir):
+    """Phase 4h: ``mirres_restir_nerf_mesh_torch.main.main`` three times on a
+    blender-format scene, then albedo_eval; the launch counters zeroed just
+    before each run and read just after.
+
+    1. stage 0 with -O (bf16, adaptive rays, mark-untrained, visibility
+       culling) at the default widths, 500 iterations, marching grid 64;
+    2. stage 1 with BRDF and ReSTIR, 10 iterations, 1024^2 textures;
+    3. the test renders with relighting (the sky + sun .hdr), spp as trained.
+
+    Gates: stage 0: val PSNR above 15, a non-empty mesh_0.ply whose median
+    vertex radius lies within 20% of 0.5, 2 K4 launches a step, one closest
+    hit a training view in save_mesh, a stage-0 checkpoint.  Stage 1: loss
+    finite, uncertain_count 0 at the logged step (the Trainer's own
+    budgets), the OBJ, both textures and a stage-1 checkpoint written, K4 3
+    a step and the tracer's launches of each frame (train steps and val
+    renders) for the route the mesh takes; its checkpoint loads into a CPU
+    Trainer with every leaf equal to the card's state.  Test: the artifact
+    set of test() for its 2 frames, every EXR finite when read back, the
+    tracer's launches, no K4; albedo_eval's PSNR finite (a plumbing check:
+    the ground truth is constant, see CLI_ALBEDO)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mirres_restir_nerf_mesh_torch import albedo_eval
+    from mirres_restir_nerf_mesh_torch import main as cli
+    from mirres_restir_nerf_mesh_torch.export import stage1_export
+    from mirres_restir_nerf_mesh_torch.export.meshio import read_ply
+    from mirres_restir_nerf_mesh_torch.ops.cluster_bvh import build_clusters
+    from mirres_restir_nerf_mesh_torch.ops.tile_tracer import _takes_dense
+    from mirres_restir_nerf_mesh_torch.train import checkpoint as ckpt
+    from mirres_restir_nerf_mesh_torch.train import stage1 as train1
+    from mirres_restir_nerf_mesh_torch.train import trainer as trainer_mod
+    from mirres_restir_nerf_mesh_torch.utils.exr import read_exr
+    from mirres_restir_nerf_mesh_torch.utils.image_io import save_hdr
+    from mirres_restir_nerf_mesh_torch.utils.profiling import PhaseTimer
+
+    zero_counts, read_counts = counts
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    base = Path(tmp.name)
+    root, ws = base / "scene", base / "ws"
+    write_blender_scene(root)
+    hdr = str(base / "sky.hdr")
+    save_hdr(hdr, sky_env())
+    common = [str(root), "--workspace", str(ws), "--bound", "1", "--scale", "1.0"]
+    argv = {
+        "stage0": common + ["--stage", "0", "-O", "--iters", str(CLI_STAGE0_ITERS),
+                            "--mcubes_reso", str(CLI_MCUBES_RESO), "--n_eval", "1",
+                            "--n_ckpt", "1"],
+        "stage1": common + ["--stage", "1", "--use_brdf", "--use_restir", "--iters",
+                            str(CLI_STAGE1_ITERS), "--texture_size", str(CLI_TEXTURE),
+                            "--n_eval", "1", "--n_ckpt", "1"],
+        "test": common + ["--stage", "1", "--test", "--use_brdf", "--use_restir", "--eval_spp",
+                          "0", "--relight_spp", "0", "--envmap_path", hdr, "--texture_size",
+                          str(CLI_TEXTURE)],
+    }
+
+    # instrumentation: the Trainers made, the seconds of each eval render,
+    # save_mesh, stage-1 step and export (each between two syncs), and the
+    # export's phases
+    T = trainer_mod.Trainer
+    trainers, times = [], {}
+    export_timer = PhaseTimer()
+    originals = (T.__init__, T._render_eval_outputs, T.save_mesh, train1.make_train_step,
+                 stage1_export.export_stage1_mesh)
+
+    def clock(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            times.setdefault(key, []).append(time.perf_counter() - t0)
+            return r
+        return run
+
+    def init(self, *a, **k):
+        originals[0](self, *a, **k)
+        trainers.append(self)
+
+    T.__init__ = init
+    T._render_eval_outputs = clock("eval_frame_s", originals[1])
+    T.save_mesh = clock("save_mesh_s", originals[2])
+    train1.make_train_step = lambda *a, **k: clock("stage1_step_s", originals[3](*a, **k))
+    stage1_export.export_stage1_mesh = lambda *a, **k: clock("export_stage1_s", originals[4])(
+        *a, **{**k, "timer": export_timer})
+
+    def run(name):
+        times.clear()
+        export_timer.totals.clear()
+        export_timer.counts.clear()
+        n_before = len(trainers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        cli.main(argv[name], device=dev)
+        torch.cuda.synchronize()
+        res = {"s": time.perf_counter() - t0, "launches": read_counts(),
+               "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+               **{k: v for k, v in times.items()}}
+        if export_timer.totals:
+            res["export_phases_s"] = dict(export_timer.totals)
+        metrics = [json.loads(x) for x in (ws / "metrics_ngp.jsonl").read_text().splitlines()]
+        return res, trainers[n_before], metrics
+
+    try:
+        res = {}
+        # ---- stage 0
+        r0, tr0, metrics = run("stage0")
+        verts, tris = read_ply(str(ws / "mesh_0.ply"))
+        train_logs = [m for m in metrics if "it_per_s" in m]
+        val = [m for m in metrics if "val_psnr" in m]
+        r0.update(
+            faces=int(tris.shape[0]), verts=int(verts.shape[0]),
+            median_vertex_radius=float(np.median(np.linalg.norm(verts, axis=1)))
+            if len(verts) else 0.0,
+            it_per_s=train_logs[-1]["it_per_s"], loss_last=train_logs[-1]["loss"],
+            num_rays_last=tr0.cfg.num_rays, val_psnr=val[-1]["val_psnr"] if val else None,
+            march_lattice_S=tr0.train_step.march_candidates,
+            checkpoints=sorted(p.name for p in (ws / "checkpoints").glob("ngp_stage0_*.pkl")))
+        la = r0["launches"]
+        r0["culling_route"] = "tile (K1)" if la["queue_trace"] else "dense (K3)"
+        res["stage0"] = r0
+        log("cli stage 0: " + json.dumps(r0))
+        n_train = CLI_SPLITS[0][1]
+        fails = []
+        if not (r0["val_psnr"] or 0.0) > CLI_MIN_VAL_PSNR:
+            fails.append(f"val PSNR {r0['val_psnr']}")
+        if (tris.shape[0] == 0
+                or not abs(r0["median_vertex_radius"] - CLI_RADIUS[0]) <= CLI_RADIUS[1]):
+            fails.append(f"mesh: {tris.shape[0]} faces, median radius "
+                         f"{r0['median_vertex_radius']}")
+        if la["scatter_add"] != K4_STAGE0_LAUNCHES * CLI_STAGE0_ITERS:
+            fails.append(f"{la['scatter_add']} K4 launches in {CLI_STAGE0_ITERS} steps")
+        if (la["queue_trace"] + la["dense_hit"] != n_train or la["dense_occluded"]
+                or la["grid_trace"]):
+            fails.append(f"save_mesh launches {la}, one closest hit a view ({n_train})")
+        if not r0["checkpoints"]:
+            fails.append("no stage-0 checkpoint")
+        if fails:
+            raise AssertionError(f"cli stage 0 failed: {fails}")
+
+        # the tracer's launches a ReSTIR frame on this mesh: primary + 2
+        # bounces closest hit, 2 NEE (the initial visibility fused in) and
+        # one spatial cross-visibility launch a spp
+        dense = _takes_dense(build_clusters(torch.as_tensor(verts, device=dev),
+                                            torch.as_tensor(tris, device=dev)), 8192)
+        route = "dense (K3)" if dense else "tile (K1)"
+
+        def frame_launches(la, frames):
+            if dense:
+                return (la["dense_hit"] == 3 * frames and la["dense_occluded"] ==
+                        (2 + CLI_SPP) * frames and la["queue_trace"] == 0)
+            return (la["queue_trace"] == (1 + 2 * 2 + CLI_SPP) * frames and la["dense_hit"] == 0
+                    and la["dense_occluded"] == 0)
+
+        # ---- stage 1
+        r1, tr1, metrics = run("stage1")
+        last = [m for m in metrics if "it_per_s" in m][-1]
+        r1.update(route=route, faces=int(tr1.tris.shape[0]), loss_last=last["loss"],
+                  psnr_last=last.get("psnr"), uncertain_count=last.get("uncertain_count"),
+                  it_per_s=last["it_per_s"],
+                  val=[m for m in metrics if "val_psnr_brdf" in m][-1:],
+                  checkpoints=sorted(p.name for p in (ws / "checkpoints").glob(
+                      "ngp_stage1_*.pkl")))
+        res["stage1"] = r1
+        log("cli stage 1: " + json.dumps(r1))
+        la = r1["launches"]
+        frames1 = CLI_STAGE1_ITERS + 2 * CLI_SPLITS[1][1]   # steps, in-train and final val
+        fails = []
+        if not np.isfinite(r1["loss_last"]):
+            fails.append(f"loss {r1['loss_last']}")
+        if r1["uncertain_count"] != 0:
+            fails.append(f"uncertain_count {r1['uncertain_count']}: the tracer dropped candidates")
+        for f in ("mesh_0.obj", "feat0_0.png", "feat1_0.png"):
+            if not (ws / f).exists():
+                fails.append(f"{f} missing")
+        if not r1["checkpoints"]:
+            fails.append("no stage-1 checkpoint")
+        if la["scatter_add"] != K4_STEP_LAUNCHES * CLI_STAGE1_ITERS:
+            fails.append(f"{la['scatter_add']} K4 launches in {CLI_STAGE1_ITERS} steps")
+        if not frame_launches(la, frames1) or la["grid_trace"]:
+            fails.append(f"tracer launches {la} for {frames1} frames on the {route} route")
+        if fails:
+            raise AssertionError(f"cli stage 1 failed: {fails}")
+
+        # the stage-1 checkpoint written on the card, in a CPU Trainer
+        t0 = time.perf_counter()
+        cfg1 = cli.config_from_args(argv["stage1"])
+        cpu_tr = T("ngp", cfg1, cli.load_dataset(cfg1, "train"), workspace=str(ws), device="cpu")
+        card_leaves, cpu_leaves = ckpt.numpy_leaves(tr1.state), ckpt.numpy_leaves(cpu_tr.state)
+        differing = [k for k in card_leaves if k not in cpu_leaves
+                     or card_leaves[k].dtype != cpu_leaves[k].dtype
+                     or not np.array_equal(card_leaves[k], cpu_leaves[k])]
+        res["checkpoint_on_cpu"] = {"leaves": len(card_leaves), "differing": differing[:8],
+                                    "s": time.perf_counter() - t0}
+        log("cli stage-1 checkpoint on the CPU: " + json.dumps(res["checkpoint_on_cpu"]))
+        if differing or set(card_leaves) != set(cpu_leaves):
+            raise AssertionError(f"stage-1 checkpoint on the CPU: leaves differ {differing[:8]}")
+        del cpu_tr
+
+        # ---- test renders with relighting, then albedo_eval
+        rt, _, _ = run("test")
+        results = ws / "results"
+        n_test = CLI_SPLITS[2][1]
+        want = {f"ngp_{i:04d}_{a}" for i in range(n_test) for a in CLI_ARTIFACTS}
+        want.add("ngp_env_map.exr")
+        got = {p.name for p in results.iterdir()}
+        exr_finite = {p.name: bool(np.isfinite(read_exr(str(p))).all())
+                      for p in sorted(results.glob("*.exr"))}
+        t0 = time.perf_counter()
+        alb = albedo_eval.main(["--pred_dir", str(results), "--gt_dir", str(root / "albedo")],
+                               device=dev)
+        rt.update(artifacts_missing=sorted(want - got), exr_finite=all(exr_finite.values()),
+                  albedo_eval=alb, albedo_eval_s=time.perf_counter() - t0)
+        rt["route"] = route
+        res["test"] = rt
+        log("cli test: " + json.dumps(rt))
+        la = rt["launches"]
+        fails = []
+        if want - got:
+            fails.append(f"missing {sorted(want - got)}")
+        if not rt["exr_finite"]:
+            fails.append(f"non-finite EXRs {[k for k, v in exr_finite.items() if not v]}")
+        if not frame_launches(la, 2 * n_test) or la["scatter_add"] or la["grid_trace"]:
+            fails.append(f"launches {la} for {2 * n_test} frames on the {route} route")
+        if not np.isfinite(alb["psnr"]):
+            fails.append(f"albedo_eval PSNR {alb['psnr']}")
+        if fails:
+            raise AssertionError(f"cli test failed: {fails}")
+        if out_dir is not None:
+            for f in ("log_ngp.txt", "metrics_ngp.jsonl"):
+                shutil.copy(ws / f, Path(out_dir) / f"cli_{f}")
+        return res
+    finally:
+        (T.__init__, T._render_eval_outputs, T.save_mesh, train1.make_train_step,
+         stage1_export.export_stage1_mesh) = originals
+        tmp.cleanup()
+
+
 def check_stage0_reference(seed, dev):
     """Phase 5d: one stage-0 step of a small fp32 field (8 levels of 2^15,
     hidden 32, grid 32, 1024 rays, max_steps 128, 32 samples, compaction to
@@ -1931,6 +2258,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     phase_done("4g")
+    # ---- 4h. the CLI as a user runs it: stage 0, stage 1, test, albedo_eval
+    cli = cli_run(dev, (zero_counts, read_counts), out_dir)
+    torch.cuda.empty_cache()
+    log(f"stage-0 it/s: {cli['stage0']['it_per_s']:.2f} under the Trainer (4h: -O, "
+        f"{cli['stage0']['num_rays_last']} rays at the end, an occupancy update every 16 "
+        f"steps), {stage0['it_per_s']:.2f} for the bare step at bench.py's point (4f: 8192 "
+        f"rays); stage 1 under the Trainer: {statistics.median(cli['stage1']['stage1_step_s']):.3f}"
+        f" s a step (median), route {cli['stage1']['route']}, uncertain_count "
+        f"{cli['stage1']['uncertain_count']:.0f}")
+
+    phase_done("4h")
     # ---- 5. reference check: card vs CPU on a small fp32 frame
     Hs = Ws = 64
     cam_s = camera(Hs, Ws, "cpu")
@@ -1981,7 +2319,9 @@ def main(argv=None) -> int:
              "restir_frame": launches_rf, "restir_train_step": launches_rt,
              "small_restir_frame": launches_rs, "grid_trace_path": launches_grid,
              "stage0_step": launches_s0, "stage0_learning": learn["launches"],
-             "stage0_export": learn["export"]["launches"]}
+             "stage0_export": learn["export"]["launches"],
+             "cli_stage0": cli["stage0"]["launches"], "cli_stage1": cli["stage1"]["launches"],
+             "cli_test": cli["test"]["launches"]}
     # K3's headlines: the primary rays (closest), the direct-shadow batch
     # (any hit: 64 of the lighter small-mesh frame's 66 any-hit launches)
     k3c, k3a = k3_checks[0], k3_checks[3]
@@ -2049,7 +2389,7 @@ def main(argv=None) -> int:
              "small_frame": small, "small_restir_frame": small_r, "train_step": train, "restir_frame": frame_r, "restir_train_step": train_r,
              "reference_check": agree,
              "train_reference_check": agree_train, "restir_reference_check": agree_restir,
-             "stage0_step": stage0, "stage0_learning": learn,
+             "stage0_step": stage0, "stage0_learning": learn, "cli": cli,
              "stage0_reference_check": agree_stage0},
             indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -5,20 +5,47 @@ mirres_restir_nerf_mesh_tpu/data/provider.py: ``FrameData``,
 The images, poses and optional depth fields live on the device; a batch is
 gathered there.  The draws of a batch (frames, pixels, the random
 background, the sparse-depth branch) come in as ``SampleDraws``, drawn by
-``RayDataset.draw`` from a generator or passed in.  ``load_blender`` (PIL
-image decoding) is not ported yet.
+``RayDataset.draw`` from a generator or passed in.  ``load_blender`` reads a
+blender-format scene (``transforms_{split}.json`` or ``transforms.json``)
+through the port's own PNG decoder (``utils/image_io.py``).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
-from .rays import get_rays, perspective_matrix, pixel_dirs
+from ..utils.image_io import read_png
+from .rays import get_rays, nerf_matrix_to_ngp, perspective_matrix, pixel_dirs
+
+
+def _load_image(path: str, downscale: int = 1) -> np.ndarray:
+    """A PNG as float32 [H, W, C] in [0, 1] (gray -> 3 channels); with
+    downscale > 1 resized to (H // d, W // d) by the antialiased bilinear
+    filter (the triangle filter widened by the scale, as PIL's BILINEAR)."""
+    arr = read_png(path).astype(np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, axis=-1)
+    if downscale > 1:
+        H, W = arr.shape[:2]
+        x = torch.from_numpy(np.ascontiguousarray(arr.transpose(2, 0, 1)))[None]
+        rgba = x.shape[1] == 4
+        if rgba:      # RGBA resizes premultiplied by its alpha, as PIL does
+            x = torch.cat([x[:, :3] * x[:, 3:], x[:, 3:]], dim=1)
+        x = F.interpolate(x, size=(H // downscale, W // downscale), mode="bilinear",
+                          antialias=True, align_corners=False).clamp(0.0, 1.0)
+        if rgba:
+            a = x[:, 3:]
+            x = torch.cat([torch.where(a > 0, (x[:, :3] / a).clamp(0.0, 1.0), 0.0), a], dim=1)
+        arr = x[0].permute(1, 2, 0).numpy()
+    return arr
 
 
 @dataclass
@@ -40,6 +67,55 @@ class FrameData:
     @property
     def num_frames(self) -> int:
         return self.poses.shape[0]
+
+
+def load_blender(root: str, split: str = "train", downscale: int = 1, scale: float = 0.8,
+                 offset=(0, 0, 0), bound: float = 1.0, with_images: bool = True) -> FrameData:
+    """A transforms_{split}.json (blender) or transforms.json scene: poses
+    scaled into the box, images (or zeros of the json's h, w with
+    ``with_images=False``), intrinsics from camera_angle_x or fl_x / fl_y /
+    cx / cy, each divided by the downscale."""
+    tf_path = os.path.join(root, f"transforms_{split}.json")
+    if not os.path.exists(tf_path):
+        tf_path = os.path.join(root, "transforms.json")
+    with open(tf_path) as f:
+        meta = json.load(f)
+
+    frames = meta["frames"]
+    poses = []
+    images: List[np.ndarray] = []
+    H = W = None
+    for fr in frames:
+        poses.append(nerf_matrix_to_ngp(np.array(fr["transform_matrix"], dtype=np.float32),
+                                        scale, offset))
+        if with_images:
+            fpath = os.path.join(root, fr["file_path"])
+            if not os.path.splitext(fpath)[1]:
+                fpath += ".png"
+            img = _load_image(fpath, downscale)
+            H, W = img.shape[:2]
+            images.append(img)
+    poses_np = np.stack(poses)
+    if with_images:
+        images_np = np.stack(images)
+    else:
+        H = int(meta.get("h", 800)) // downscale
+        W = int(meta.get("w", 800)) // downscale
+        images_np = np.zeros((len(frames), H, W, 3), np.float32)
+
+    if "fl_x" in meta:
+        fx = meta["fl_x"] / downscale
+        fy = meta.get("fl_y", meta["fl_x"]) / downscale
+    else:
+        fx = fy = 0.5 * W / np.tan(0.5 * float(meta["camera_angle_x"]))
+    if "cx" in meta:
+        cx = meta["cx"] / downscale
+        cy = meta["cy"] / downscale if "cy" in meta else H / 2.0
+    else:
+        cx, cy = W / 2.0, H / 2.0
+    intrinsics = np.array([fx, fy, cx, cy], dtype=np.float32)
+    return FrameData(images=images_np, poses=poses_np, intrinsics=intrinsics, H=H, W=W,
+                     mvps=compute_mvps(poses_np, intrinsics, H, W, bound))
 
 
 def compute_mvps(poses: np.ndarray, intrinsics: np.ndarray, H: int, W: int,

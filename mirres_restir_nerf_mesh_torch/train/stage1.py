@@ -17,7 +17,8 @@
   leaf steps (a leaf without a gradient takes a zero one), and the update
   is functional: a step returns new tensors and leaves its input state as
   it was.  The envmap is clamped to >= 0.01 after each update.
-- Loss: NeRF-rgb MSE + BRDF L1 + mask + monochrome shading + material
+- Loss: NeRF-rgb MSE + BRDF L1 + mask (+ LPIPS on the full frame, for
+  both images) + monochrome shading + material
   smoothness (+ AO-weighted albedo smoothness, + chroma) + Laplacian /
   normal-consistency / edge / offsets
   regularizers; per-face error sums for the refine hook.
@@ -129,8 +130,6 @@ def stage1_loss(params: Stage1Params, static: Stage1Static, base_verts: torch.Te
                 generator: Optional[torch.Generator] = None,
                 rand: Optional[FrameRandoms] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (loss, aux); aux holds detached values."""
-    if cfg.lambda_lpips > 0 and static.H > 0:
-        raise NotImplementedError("lambda_lpips > 0 (LPIPS) is not ported yet")
     out = render_stage1(params, static, base_verts, batch["rays_o"], batch["rays_d"],
                         generator=generator, rand=rand)
 
@@ -152,6 +151,18 @@ def stage1_loss(params: Stage1Params, static: Stage1Static, base_verts: torch.Te
         loss = loss + cfg.lambda_rgb_brdf * torch.mean(torch.abs(out["image_brdf"] - gt))
     if cfg.lambda_mask > 0 and "alpha" in batch:
         loss = loss + cfg.lambda_mask * torch.mean((out["weights_sum"] - batch["alpha"]) ** 2)
+    if cfg.lambda_lpips > 0 and static.H > 0:
+        # perceptual loss on the full frame, for the NeRF and the BRDF image
+        from .lpips import default_params, lpips_distance
+
+        lp_params, _ = default_params(cfg.lpips_weights, gt.device)
+        Hg, Wg = static.H // s, static.W // s
+        gt_img = gt.reshape(Hg, Wg, 3)
+        loss = loss + cfg.lambda_lpips * lpips_distance(
+            lp_params, out["image"].reshape(Hg, Wg, 3), gt_img)
+        if cfg.use_brdf:
+            loss = loss + cfg.lambda_lpips * lpips_distance(
+                lp_params, out["image_brdf"].reshape(Hg, Wg, 3), gt_img)
     if cfg.use_brdf:
         loss = loss + L.shading_loss(out["diffuse_light"], out["specular_light"],
                                      gt_linear - out["img_brdf_indirect"],

@@ -261,3 +261,15 @@ def occupancy_draws_jax(key, C, H, bound, stochastic):
     su = (t(jax.random.uniform(jax.random.fold_in(key, 777), (H ** 3, 3))) if stochastic
           else None)
     return OccupancyDraws(jitter=t(np.stack(jit)), stochastic_u=su)
+
+
+def lpips_weights_npz(path):
+    """The JAX package's random-VGG LPIPS params (``random_params(PRNGKey(0))``)
+    written as a vendored-weights .npz, which both packages load."""
+    import jax
+
+    from mirres_restir_nerf_mesh_tpu.train.lpips import random_params
+
+    params = jax.jit(random_params)(jax.random.PRNGKey(0))
+    np.savez(path, **{k: np.asarray(v) for k, v in params.items()})
+    return str(path)

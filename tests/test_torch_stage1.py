@@ -107,16 +107,27 @@ def test_compact_chunks_equivalence():
 
 def test_unported_options_raise():
     """What the port does not have yet raises: the lbvh and cluster tracer
-    kinds, and the LPIPS term of the stage-1 loss."""
+    kinds.  The LPIPS term of the stage-1 loss, which raised here before it
+    was ported, runs: a frame's loss with lambda_lpips > 0 is finite and
+    larger by the term (its parity with the reference is held in
+    tests/test_torch_train_loss.py and tests/test_torch_metrics.py)."""
     from mirres_restir_nerf_mesh_torch.config import Config, finalize
     from mirres_restir_nerf_mesh_torch.ops.tracer import Tracer
+    from mirres_restir_nerf_mesh_torch.train.losses import build_topology
     from mirres_restir_nerf_mesh_torch.train.stage1 import stage1_loss
 
     for kind in ("lbvh", "cluster"):
         with pytest.raises(NotImplementedError):
             Tracer(None, kind=kind)
-    st = ts.Stage1Static(tris=torch.zeros((1, 3), dtype=torch.int64), nerf_spec=NeRFSpec(),
-                         mat_spec=MaterialSpec(), H=2, W=2)
-    cfg = finalize(Config(bound=1.0, stage=1, lambda_lpips=0.1))
-    with pytest.raises(NotImplementedError):
-        stage1_loss(None, st, torch.zeros((3, 3)), None, {}, cfg)
+    _, params, static, inputs, rand = frame_case(H=16, spp=1, faces=1200, dense_threshold=8192,
+                                                 run_reference=False)
+    verts, rays_o, rays_d = inputs
+    tris = n(static.tris)
+    batch = {"rays_o": rays_o, "rays_d": rays_d, "pixels": torch.full((16 * 16, 3), 0.5)}
+    topo = build_topology(tris, verts.shape[0])
+    losses = []
+    for lam in (0.0, 0.1):
+        cfg = finalize(Config(bound=1.0, stage=1, use_brdf=True, lambda_lpips=lam))
+        loss, _ = stage1_loss(params, static, verts, topo, batch, cfg, rand=rand)
+        losses.append(float(loss))
+    assert np.isfinite(losses).all() and losses[1] > losses[0]

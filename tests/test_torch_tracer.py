@@ -135,17 +135,21 @@ def test_cuda_request_without_card_raises():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports with `jax` and the
-    JAX package blocked; no import statement names either."""
+    """Every module of the port, and chip_smoke.py, imports with `jax`, the
+    JAX package, PIL, cv2 and the root scripts main.py and albedo_eval.py
+    (which import the JAX package) blocked; no import statement names any
+    of them.  (The card machine has no PIL or cv2; the optional `lpips`
+    package stays a guarded import.)"""
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['mirres_restir_nerf_mesh_tpu'] = None\n"
+        "for m in ('jax', 'mirres_restir_nerf_mesh_tpu', 'PIL', 'cv2', 'main', 'albedo_eval'):\n"
+        "    sys.modules[m] = None\n"
         "import mirres_restir_nerf_mesh_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
+        "for m in ('jax', 'PIL', 'cv2', 'main', 'albedo_eval'):\n"
+        "    assert sys.modules.get(m) is None, m\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -153,7 +157,8 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     import re
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|mirres_restir_nerf_mesh_tpu)\b", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|mirres_restir_nerf_mesh_tpu|PIL|cv2|main|albedo_eval)\b",
+                     re.M)
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "mirres_restir_nerf_mesh_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]

@@ -10,7 +10,8 @@ relative L2 <= 1e-3 and cosine >= 0.99999 (the same terms summed in
 another order; the largest measured relative L2 is 1.1e-4, on the material
 encoder, whose entries are sums of many cancelling contributions).  The
 ssaa=2 case (32x32 render, 16x16 ground truth) compares the loss and the
-aux values with the same tolerances.
+aux values with the same tolerances, also with the LPIPS term on
+(``test_lpips_raises``).
 """
 
 import jax
@@ -23,7 +24,7 @@ from mirres_restir_nerf_mesh_tpu.train import stage1 as jtr
 from mirres_restir_nerf_mesh_torch.convert import params_from_jax
 from mirres_restir_nerf_mesh_torch.train import stage1 as ttr
 
-from test_torch_helpers import TORCH_THREADS, n, t, tree_np
+from test_torch_helpers import TORCH_THREADS, lpips_weights_npz, n, t, tree_np
 from test_torch_train import cosine, jax_groups, rel_l2, train_case
 
 torch.set_num_threads(TORCH_THREADS)
@@ -81,8 +82,24 @@ def test_stage1_loss_ssaa_matches_reference(ssaa):
     check_aux(aux_t, aux_j)
 
 
-def test_lpips_raises():
-    c = train_case(H=8, spp=1)
-    cfg = ttr.Config(**{**c["tcfg"].__dict__, "lambda_lpips": 0.1})
-    with pytest.raises(NotImplementedError):
-        ttr.stage1_loss(None, c["tstatic"], t(c["v"]), c["ttopo"], c["tbatch"], cfg)
+def test_lpips_raises(tmp_path):
+    """The LPIPS term, which raised before it was ported, now runs and matches
+    the reference: the ssaa=2 case with lambda_lpips 0.1 on the reference's
+    random-VGG weights carried over through an .npz (both images, at the GT
+    size after the downsample): loss and aux at the tolerances above, and
+    the term adds to the loss."""
+    weights = lpips_weights_npz(tmp_path / "vgg_random.npz")
+    c = train_case(H=32, ssaa=2)
+    jcfg = jtr.Config(**{**c["jcfg"].__dict__, "lambda_lpips": 0.1, "lpips_weights": weights})
+    tcfg = ttr.Config(**{**c["tcfg"].__dict__, "lambda_lpips": 0.1, "lpips_weights": weights})
+    key = jax.random.PRNGKey(8)
+    loss_j, aux_j = jax.jit(lambda p: jtr.stage1_loss(p, c["jstatic"], jnp.asarray(c["v"]),
+                                                      c["jtopo"], c["batch"], key, jcfg))(
+        c["params"])
+    loss_t, aux_t = ttr.stage1_loss(port_params(c["params"]), c["tstatic"], t(c["v"]), c["ttopo"],
+                                    c["tbatch"], tcfg, rand=c["rand"](key))
+    loss_0, _ = ttr.stage1_loss(port_params(c["params"]), c["tstatic"], t(c["v"]), c["ttopo"],
+                                c["tbatch"], c["tcfg"], rand=c["rand"](key))
+    assert float(loss_t) > float(loss_0) + 1e-4
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
+    check_aux(aux_t, aux_j)
