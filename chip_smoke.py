@@ -3,7 +3,8 @@
 frame and train step, with and without ReSTIR DI, stage 0 (the
 radiance-field train step, occupancy update, eval render and mesh export),
 and the command line a user runs (stage 0, stage 1, test renders,
-albedo_eval).
+albedo_eval) on a blender-format scene and on a COLMAP workspace with
+JPEG frames, sparse and dense depth.
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
     python3 chip_smoke.py --k3-route    (the dense route alone; see k3_route)
@@ -138,6 +139,34 @@ Phases (any failure exits non-zero):
    it/s under the Trainer, faces, route, launches, peak memory, the seconds
    of each eval frame and stage-1 step, save_mesh, and export_stage1 by
    phase (atlas, raster, material, inpaint, write).
+4i. The repo's "your dataset" recipe (configs/general_config_for_your_dataset.txt)
+   on a COLMAP workspace written here: the sphere inside a textured cube
+   room (every pixel sees a surface, as in a capture), sparse/0/*.bin (a
+   PINHOLE camera with fx != fy and an off-centre principal point; 24
+   views of 320x240; 4,000 points, 10% of them moved off the surface, with
+   tracks into the views that see them, 0.3 px noise, errors in [0.2,
+   1.5]; 10% untracked keypoints), images/*.jpg (this file's baseline
+   encoder, 4:2:0) and depths/*.npy (0.4 z + 0.7 of the true depth).
+   load_colmap is held to it: the poses under the loader's own centre and
+   scale (1e-5), the sparse tables to the tracks' projections,
+   cam_near_far to their range, the aligned dense depth within a median
+   relative error of 1e-3 despite the outliers.  Then, host seconds: the
+   readers and load_colmap (with_images=False) at a real size (200 views,
+   100k points, 5k tracked keypoints a view), read_jpeg a megapixel on two
+   1008x756 frames (smooth; with noise, at a photograph's bit rate); the port's DPT (random weights, full width) on 2 frames
+   at 384^2, the card against the CPU with TF32 off within 2e-4 of the
+   map's max, ms a frame with TF32 off and at PyTorch's default; a DTU scene
+   (cameras_sphere.npz with scale_mat, PNG image/ + mask/) through
+   load_dtu, poses within 1e-4.  Then main() three times (the counters
+   zeroed before each run and read after): stage 0 (-O --data_format
+   colmap --bound 2, 500 iterations, marching grid 64), gates: val PSNR
+   above 15, a mesh of median radius within 20% of the sphere's in the
+   normalized scene, 2 K4 launches a step, one closest hit a training view
+   in save_mesh, the sparse-depth branch in 5-15% of the steps; stage 1
+   (--use_brdf --use_restir, 10 iterations, 1024^2 textures), gates: loss
+   finite, uncertain_count 0, K4 3 a step, the tracer's launches of every
+   frame; --test, gates: each test frame's artifacts, every EXR finite,
+   the tracer's launches.
 5. Reference check: a 64x64, spp-2 frame of the small mesh in fp32 on the
    card against the same frame on the CPU (the plain versions, which the
    CPU tests hold against the JAX package), same weights and randoms.
@@ -1495,6 +1524,106 @@ def write_blender_scene(root: Path) -> None:
             {"camera_angle_x": float(2 * np.arctan(0.5 * W / fx)), "frames": frames}))
 
 
+def takes_dense_route(verts, tris, dev) -> bool:
+    """Whether the tracer takes a mesh by the dense route (K3)."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops.cluster_bvh import build_clusters
+    from mirres_restir_nerf_mesh_torch.ops.tile_tracer import _takes_dense
+
+    return _takes_dense(build_clusters(torch.as_tensor(verts, device=dev),
+                                       torch.as_tensor(tris, device=dev)), 8192)
+
+
+def restir_frame_launches(la, frames: int, dense: bool, spp: int) -> bool:
+    """Whether ``la`` holds the tracer's launches of ``frames`` ReSTIR
+    frames: primary + 2 bounces closest hit, 2 NEE (the initial visibility
+    fused in) and one spatial cross-visibility launch a spp."""
+    if dense:
+        return (la["dense_hit"] == 3 * frames and la["dense_occluded"] == (2 + spp) * frames
+                and la["queue_trace"] == 0)
+    return (la["queue_trace"] == (1 + 2 * 2 + spp) * frames and la["dense_hit"] == 0
+            and la["dense_occluded"] == 0)
+
+
+class CliHarness:
+    """Runs ``mirres_restir_nerf_mesh_torch.main.main`` with the launch
+    counters zeroed just before and read just after, recording the Trainers
+    it makes and the seconds (each between two syncs) of every eval render,
+    save_mesh, stage-1 step and stage-1 export, the export by phase.
+    ``close`` restores what it patched."""
+
+    def __init__(self, counts):
+        import torch
+
+        from mirres_restir_nerf_mesh_torch.export import stage1_export
+        from mirres_restir_nerf_mesh_torch.train import stage1 as train1
+        from mirres_restir_nerf_mesh_torch.train import trainer as trainer_mod
+        from mirres_restir_nerf_mesh_torch.utils.profiling import PhaseTimer
+
+        self.zero_counts, self.read_counts = counts
+        T = trainer_mod.Trainer
+        self.trainers, self.times = [], {}
+        self.export_timer = PhaseTimer()
+        self._restore = [(T, "__init__", T.__init__),
+                         (T, "_render_eval_outputs", T._render_eval_outputs),
+                         (T, "save_mesh", T.save_mesh),
+                         (train1, "make_train_step", train1.make_train_step),
+                         (stage1_export, "export_stage1_mesh", stage1_export.export_stage1_mesh)]
+        originals = [o for _, _, o in self._restore]
+        times = self.times
+
+        def clock(key, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+                times.setdefault(key, []).append(time.perf_counter() - t0)
+                return r
+            return run
+
+        def init(tr, *a, **k):
+            originals[0](tr, *a, **k)
+            self.trainers.append(tr)
+
+        T.__init__ = init
+        T._render_eval_outputs = clock("eval_frame_s", originals[1])
+        T.save_mesh = clock("save_mesh_s", originals[2])
+        train1.make_train_step = lambda *a, **k: clock("stage1_step_s", originals[3](*a, **k))
+        stage1_export.export_stage1_mesh = lambda *a, **k: clock("export_stage1_s", originals[4])(
+            *a, **{**k, "timer": self.export_timer})
+
+    def run(self, argv, ws: Path, dev):
+        """main(argv) on dev -> (readings, its Trainer, metrics_ngp.jsonl's
+        records)."""
+        import torch
+
+        from mirres_restir_nerf_mesh_torch import main as cli
+
+        self.times.clear()
+        self.export_timer.totals.clear()
+        self.export_timer.counts.clear()
+        n_before = len(self.trainers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        cli.main(argv, device=dev)
+        torch.cuda.synchronize()
+        res = {"s": time.perf_counter() - t0, "launches": self.read_counts(),
+               "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+               **{k: v for k, v in self.times.items()}}
+        if self.export_timer.totals:
+            res["export_phases_s"] = dict(self.export_timer.totals)
+        metrics = [json.loads(x) for x in (ws / "metrics_ngp.jsonl").read_text().splitlines()]
+        return res, self.trainers[n_before], metrics
+
+    def close(self):
+        for obj, name, orig in self._restore:
+            setattr(obj, name, orig)
+
+
 def cli_run(dev, counts, out_dir):
     """Phase 4h: ``mirres_restir_nerf_mesh_torch.main.main`` three times on a
     blender-format scene, then albedo_eval; the launch counters zeroed just
@@ -1520,22 +1649,15 @@ def cli_run(dev, counts, out_dir):
     import tempfile
 
     import numpy as np
-    import torch
 
     from mirres_restir_nerf_mesh_torch import albedo_eval
     from mirres_restir_nerf_mesh_torch import main as cli
-    from mirres_restir_nerf_mesh_torch.export import stage1_export
     from mirres_restir_nerf_mesh_torch.export.meshio import read_ply
-    from mirres_restir_nerf_mesh_torch.ops.cluster_bvh import build_clusters
-    from mirres_restir_nerf_mesh_torch.ops.tile_tracer import _takes_dense
     from mirres_restir_nerf_mesh_torch.train import checkpoint as ckpt
-    from mirres_restir_nerf_mesh_torch.train import stage1 as train1
     from mirres_restir_nerf_mesh_torch.train import trainer as trainer_mod
     from mirres_restir_nerf_mesh_torch.utils.exr import read_exr
     from mirres_restir_nerf_mesh_torch.utils.image_io import save_hdr
-    from mirres_restir_nerf_mesh_torch.utils.profiling import PhaseTimer
 
-    zero_counts, read_counts = counts
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
     base = Path(tmp.name)
     root, ws = base / "scene", base / "ws"
@@ -1554,55 +1676,11 @@ def cli_run(dev, counts, out_dir):
                           "0", "--relight_spp", "0", "--envmap_path", hdr, "--texture_size",
                           str(CLI_TEXTURE)],
     }
-
-    # instrumentation: the Trainers made, the seconds of each eval render,
-    # save_mesh, stage-1 step and export (each between two syncs), and the
-    # export's phases
+    harness = CliHarness(counts)
     T = trainer_mod.Trainer
-    trainers, times = [], {}
-    export_timer = PhaseTimer()
-    originals = (T.__init__, T._render_eval_outputs, T.save_mesh, train1.make_train_step,
-                 stage1_export.export_stage1_mesh)
-
-    def clock(key, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = fn(*a, **k)
-            torch.cuda.synchronize()
-            times.setdefault(key, []).append(time.perf_counter() - t0)
-            return r
-        return run
-
-    def init(self, *a, **k):
-        originals[0](self, *a, **k)
-        trainers.append(self)
-
-    T.__init__ = init
-    T._render_eval_outputs = clock("eval_frame_s", originals[1])
-    T.save_mesh = clock("save_mesh_s", originals[2])
-    train1.make_train_step = lambda *a, **k: clock("stage1_step_s", originals[3](*a, **k))
-    stage1_export.export_stage1_mesh = lambda *a, **k: clock("export_stage1_s", originals[4])(
-        *a, **{**k, "timer": export_timer})
 
     def run(name):
-        times.clear()
-        export_timer.totals.clear()
-        export_timer.counts.clear()
-        n_before = len(trainers)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        t0 = time.perf_counter()
-        cli.main(argv[name], device=dev)
-        torch.cuda.synchronize()
-        res = {"s": time.perf_counter() - t0, "launches": read_counts(),
-               "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
-               **{k: v for k, v in times.items()}}
-        if export_timer.totals:
-            res["export_phases_s"] = dict(export_timer.totals)
-        metrics = [json.loads(x) for x in (ws / "metrics_ngp.jsonl").read_text().splitlines()]
-        return res, trainers[n_before], metrics
+        return harness.run(argv[name], ws, dev)
 
     try:
         res = {}
@@ -1641,19 +1719,11 @@ def cli_run(dev, counts, out_dir):
         if fails:
             raise AssertionError(f"cli stage 0 failed: {fails}")
 
-        # the tracer's launches a ReSTIR frame on this mesh: primary + 2
-        # bounces closest hit, 2 NEE (the initial visibility fused in) and
-        # one spatial cross-visibility launch a spp
-        dense = _takes_dense(build_clusters(torch.as_tensor(verts, device=dev),
-                                            torch.as_tensor(tris, device=dev)), 8192)
+        dense = takes_dense_route(verts, tris, dev)
         route = "dense (K3)" if dense else "tile (K1)"
 
         def frame_launches(la, frames):
-            if dense:
-                return (la["dense_hit"] == 3 * frames and la["dense_occluded"] ==
-                        (2 + CLI_SPP) * frames and la["queue_trace"] == 0)
-            return (la["queue_trace"] == (1 + 2 * 2 + CLI_SPP) * frames and la["dense_hit"] == 0
-                    and la["dense_occluded"] == 0)
+            return restir_frame_launches(la, frames, dense, CLI_SPP)
 
         # ---- stage 1
         r1, tr1, metrics = run("stage1")
@@ -1734,8 +1804,768 @@ def cli_run(dev, counts, out_dir):
                 shutil.copy(ws / f, Path(out_dir) / f"cli_{f}")
         return res
     finally:
-        (T.__init__, T._render_eval_outputs, T.save_mesh, train1.make_train_step,
-         stage1_export.export_stage1_mesh) = originals
+        harness.close()
+        tmp.cleanup()
+
+
+# phase 4i: the repo's "your dataset" recipe (configs/general_config_for_your_dataset.txt)
+# on a COLMAP workspace of the analytic sphere: sparse/0/*.bin, JPEG images
+# (this file's encoder), dense depth maps; then the loaders at a real size,
+# read_jpeg per megapixel, the port's DPT on the card, and a DTU scene.
+COLMAP_HW = (240, 320)                          # H, W
+COLMAP_VIEWS = 24
+COLMAP_POINTS = 4000
+COLMAP_OUTLIER_SHARE = 0.1
+COLMAP_UNTRACKED_SHARE = 0.1                    # keypoints without a 3-D point
+COLMAP_PINHOLE = (262.0, 251.0, 163.7, 116.4)   # at 320 wide: fx != fy, off-centre principal point
+COLMAP_NOISE_PX = 0.3
+COLMAP_ERR = (0.2, 1.5)
+COLMAP_DEPTH_AFFINE = (0.4, 0.7)                # depths/*.npy = 0.4 z + 0.7
+# the sphere scene (radius 0.5 at the origin, cameras at 2) in COLMAP's
+# world: x_world = WORLD_SCALE * R x + WORLD_SHIFT
+COLMAP_WORLD_SCALE = 3.0
+COLMAP_WORLD_SHIFT = (0.4, -0.2, 1.0)
+COLMAP_WORLD_AXIS_ANGLE = ((0.3, 1.0, 0.2), 0.7)
+COLMAP_BOUND = 2.0
+# the room's half-size in the sphere scene's units: the cameras (at 2) stand
+# inside it; scaled by the loader (cameras at 0.75 bound) it lies between
+# the inner cascade's box [-1, 1]^3 and the bound, so mesh_0.ply holds the
+# sphere and mesh_1.ply the walls
+COLMAP_ROOM = 2.5
+COLMAP_TEST_EVERY = 8                           # load_colmap's default split rule
+COLMAP_JPEG_QUALITY = 90
+COLMAP_STAGE0_ITERS = 500
+COLMAP_STAGE1_ITERS = 10
+COLMAP_TEXTURE = 1024
+# the marching grid of save_mesh: the sphere covers ~13k pixels of a view,
+# so at 64^3 the faces a training pixel's closest hit lands on join into a
+# surface (ROADMAP Queue C), and its ~13k faces keep stage 1's traces within
+# the Trainer's budgets at 640x480 (at 128^3 its 51.5k faces left 100,923
+# rays uncertain)
+COLMAP_MCUBES_RESO = 64
+COLMAP_SPARSE_SHARE = (0.05, 0.15)              # the sampler's 10% branch, +-3.7 sigma at 500
+COLMAP_RADIUS_TOL = 0.2                         # the mesh's median radius (4g's, 4h's gate)
+COLMAP_MAX_DENSE_REL_ERR = 1e-3
+COLMAP_POSE_ATOL = 1e-5
+LOADER_REAL = dict(images=200, points=100_000, keypoints=5_000, track=10)
+JPEG_TIMED_HW = (756, 1008)
+DPT_FRAMES = 2
+DPT_ATOL = 2e-4                                 # of the map's max (tests/test_depth_net.py)
+DTU_VIEWS, DTU_HW = 6, (120, 160)
+
+# baseline JPEG: ITU T.81 Annex K tables (quantization in natural order,
+# Huffman code counts and symbols)
+_JPEG_QUANT = (
+    [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69,
+     56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81,
+     104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99, 99,
+     99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32)
+_JPEG_HUFF = {
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], "000102030405060708090a0b"),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], "000102030405060708090a0b"),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125],
+             "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a16"
+             "1718191a25262728292a3435363738393a434445464748494a535455565758595a63646566676869"
+             "6a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6"
+             "b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+             "f9fa"),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119],
+             "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434"
+             "e125f11718191a262728292a35363738393a434445464748494a535455565758595a636465666768"
+             "696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
+             "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+             "f9fa"),
+}
+_ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41,
+           34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30,
+           37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+
+
+def write_jpeg(path, rgb, quality: int = 90) -> None:
+    """uint8 RGB [H, W, 3] -> a baseline JFIF JPEG at 4:2:0: JFIF's YCbCr,
+    2x2 chroma means, a float DCT, libjpeg's quality scaling of the Annex K
+    tables and Annex K's Huffman codes.  Kept here, apart from the port, so
+    that the card run decodes files the port did not write."""
+    import struct as st
+
+    import numpy as np
+
+    H, W = rgb.shape[:2]
+    x = rgb.astype(np.float64)
+    ycc = np.stack([x @ [0.299, 0.587, 0.114],
+                    x @ [-0.168736, -0.331264, 0.5] + 128.0,
+                    x @ [0.5, -0.418688, -0.081312] + 128.0], axis=-1)
+    Hp, Wp = -(-H // 16) * 16, -(-W // 16) * 16
+    ycc = np.pad(ycc, ((0, Hp - H), (0, Wp - W), (0, 0)), mode="edge")
+    sub = ycc[..., 1:].reshape(Hp // 2, 2, Wp // 2, 2, 2).mean(axis=(1, 3))
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    qt = [np.clip((np.array(q) * scale + 50) // 100, 1, 255) for q in _JPEG_QUANT]
+    u = np.arange(8)
+    D = np.sqrt(np.where(u == 0, 1.0, 2.0) / 8)[:, None] * np.cos(
+        (2 * u[None] + 1) * u[:, None] * np.pi / 16)
+
+    def blocks(plane, q):
+        h, w = plane.shape
+        b = plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3) - 128.0
+        c = np.round(D @ b @ D.T / q.reshape(8, 8)).astype(np.int64)
+        return c.reshape(h // 8, w // 8, 64)[..., list(_ZIGZAG)]
+
+    yb = blocks(ycc[..., 0], qt[0])
+    cbb, crb = blocks(sub[..., 0], qt[1]), blocks(sub[..., 1], qt[1])
+    codes = {}
+    for key, (counts, hexvals) in _JPEG_HUFF.items():
+        vals, code, k, table = bytes.fromhex(hexvals), 0, 0, {}
+        for L in range(1, 17):
+            for _ in range(counts[L - 1]):
+                table[vals[k]] = format(code, f"0{L}b")
+                code, k = code + 1, k + 1
+            code <<= 1
+        codes[key] = table
+
+    def bits(v):
+        s = abs(v).bit_length()
+        return s, (format(v if v > 0 else v + (1 << s) - 1, f"0{s}b") if s else "")
+
+    out, pred = [], [0, 0, 0]
+
+    def put(block, comp, t):
+        dc_tab, ac_tab = codes[(0, t)], codes[(1, t)]
+        s, b = bits(int(block[0]) - pred[comp])
+        pred[comp] = int(block[0])
+        out.append(dc_tab[s] + b)
+        nz = np.nonzero(block[1:])[0] + 1
+        last = 0
+        for k in nz.tolist():
+            run = k - last - 1
+            while run > 15:
+                out.append(ac_tab[0xF0])
+                run -= 16
+            s, b = bits(int(block[k]))
+            out.append(ac_tab[(run << 4) | s] + b)
+            last = k
+        if last < 63:
+            out.append(ac_tab[0x00])
+
+    for my in range(Hp // 16):
+        for mx in range(Wp // 16):
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    put(yb[2 * my + dy, 2 * mx + dx], 0, 0)
+            put(cbb[my, mx], 1, 1)
+            put(crb[my, mx], 2, 1)
+    s = "".join(out)
+    s += "1" * (-len(s) % 8)
+    data = int(s, 2).to_bytes(len(s) // 8, "big").replace(b"\xff", b"\xff\x00") if s else b""
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + st.pack(">H", len(body) + 2) + body
+
+    hdr = b"\xff\xd8" + seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    for i, q in enumerate(qt):
+        hdr += seg(0xDB, bytes([i]) + bytes(int(v) for v in q[list(_ZIGZAG)]))
+    hdr += seg(0xC0, st.pack(">BHHB", 8, H, W, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    for (tc, th), (counts, hexvals) in _JPEG_HUFF.items():
+        hdr += seg(0xC4, bytes([tc << 4 | th]) + bytes(counts) + bytes.fromhex(hexvals))
+    hdr += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    Path(path).write_bytes(hdr + data + b"\xff\xd9")
+
+
+def rotmat2qvec(R):
+    """A rotation matrix as COLMAP's (w, x, y, z) quaternion, w >= 0."""
+    import numpy as np
+
+    (Rxx, Ryx, Rzx), (Rxy, Ryy, Rzy), (Rxz, Ryz, Rzz) = np.asarray(R)
+    K = np.array([[Rxx - Ryy - Rzz, 0, 0, 0], [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
+                  [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
+                  [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz]]) / 3.0
+    w, v = np.linalg.eigh(K)
+    q = v[[3, 0, 1, 2], np.argmax(w)]
+    return -q if q[0] < 0 else q
+
+
+def write_colmap_model(sparse: Path, W, H, pinhole, images, points):
+    """COLMAP's binary model: one PINHOLE camera; images: (id, qvec, tvec,
+    name, xy [M, 2], point ids [M]); points: (ids [P], xyz [P, 3], errors
+    [P], track length [P])."""
+    import struct as st
+
+    import numpy as np
+
+    sparse.mkdir(parents=True, exist_ok=True)
+    (sparse / "cameras.bin").write_bytes(st.pack("<QiiQQ", 1, 1, 1, W, H)
+                                         + st.pack("<4d", *pinhole))
+    parts = [st.pack("<Q", len(images))]
+    kp = np.dtype([("x", "<f8"), ("y", "<f8"), ("id", "<i8")])
+    for iid, q, t, name, xy, pid in images:
+        rec = np.empty(len(pid), kp)
+        rec["x"], rec["y"], rec["id"] = xy[:, 0], xy[:, 1], pid
+        parts += [st.pack("<i4d3di", iid, *q, *t, 1), name.encode() + b"\0",
+                  st.pack("<Q", len(pid)), rec.tobytes()]
+    (sparse / "images.bin").write_bytes(b"".join(parts))
+    ids, xyz, err, track = points
+    head = np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("err", "<f8"),
+                     ("n", "<u8")])
+    rec = np.zeros(len(ids), head)
+    rec["id"], rec["xyz"], rec["rgb"], rec["err"], rec["n"] = ids, xyz, 128, err, track
+    parts = [st.pack("<Q", len(ids))]
+    heads = [r.tobytes() for r in rec]
+    for h, n in zip(heads, np.asarray(track).tolist()):
+        parts += [h, bytes(8 * n)]
+    (sparse / "points3D.bin").write_bytes(b"".join(parts))
+
+
+def _axis_angle(axis, angle):
+    import numpy as np
+
+    a = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    Kx = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    return np.eye(3) + np.sin(angle) * Kx + (1 - np.cos(angle)) * Kx @ Kx
+
+
+def room_view(pose, intr, H, W):
+    """One view of the capture's scene: data/synthetic.py's sphere (radius
+    0.5 at the origin, its shading) inside a cube room of half-size
+    COLMAP_ROOM, whose walls carry a smooth colour pattern.  -> (RGB
+    [H, W, 3] in [0, 1], z-depth [H, W] along the OpenGL camera's axis,
+    the sphere's pixels)."""
+    import numpy as np
+
+    from mirres_restir_nerf_mesh_torch.data.synthetic import render_sphere_image
+
+    fx, fy, cx, cy = intr
+    jj, ii = np.meshgrid(np.arange(H) + 0.5, np.arange(W) + 0.5, indexing="ij")
+    d = np.stack([(ii - cx) / fx, -(jj - cy) / fy, -np.ones_like(ii)], axis=-1) @ pose[:3, :3].T
+    o = pose[:3, 3].astype(np.float64)
+    a, b = np.sum(d * d, -1), np.sum(d * o, -1)
+    disc = b * b - a * (o @ o - 0.25)
+    t_obj = (-b - np.sqrt(np.maximum(disc, 0.0))) / a       # along d, whose camera z is -1
+    obj = (disc > 0) & (t_obj > 0)
+    with np.errstate(divide="ignore"):
+        t_wall = np.min(np.maximum((COLMAP_ROOM - o) / d, (-COLMAP_ROOM - o) / d), axis=-1)
+    p = o + d * t_wall[..., None]
+    wall = np.stack([0.55 + 0.3 * np.sin(1.9 * p[..., 0] + 2.3 * k) * np.cos(1.3 * p[..., 1] - k)
+                     * np.cos(1.7 * p[..., 2] + 0.5 * k) for k in range(3)], -1)
+    img = render_sphere_image(pose.astype(np.float32), np.asarray(intr, np.float32), H, W)
+    rgb = np.where(obj[..., None], img[..., :3], wall)
+    return np.clip(rgb, 0.0, 1.0), np.where(obj, t_obj, t_wall), obj
+
+
+def write_colmap_scene(root: Path, hw=None, n_views=None, n_points=None) -> dict:
+    """A COLMAP workspace of a capture under root: the analytic sphere in a
+    cube room (room_view), 24 views orbiting it, in a world moved by a
+    similarity.  sparse/0 holds the binary model: a PINHOLE camera, the
+    views in a shuffled id order, points (three quarters on the sphere,
+    10% of all moved off it, a quarter on the walls) with tracks into the
+    views that see them (the sphere's facing side, the walls where the
+    sphere does not hide them), 0.3 px noise on the 2-D positions, errors
+    in [0.2, 1.5], 10% untracked keypoints; images/*.jpg (write_jpeg) and
+    depths/*.npy (0.4 z + 0.7 of the true z-depth).  Returns the truth in
+    COLMAP's world: OpenGL cam2world poses, names, points, errors, each
+    view's keypoints, the z-depth maps, the sphere's centre and radius."""
+    import numpy as np
+
+    from mirres_restir_nerf_mesh_torch.data.synthetic import orbit_pose
+
+    rng = np.random.RandomState(0)
+    H, W = hw or COLMAP_HW
+    n_views, n_points = n_views or COLMAP_VIEWS, n_points or COLMAP_POINTS
+    intr = np.array(COLMAP_PINHOLE, np.float64) * (W / 320)
+    R0 = _axis_angle(*COLMAP_WORLD_AXIS_ANGLE)
+    s0, t0 = COLMAP_WORLD_SCALE, np.asarray(COLMAP_WORLD_SHIFT)
+    n_wall = n_points // 4
+    n_obj = n_points - n_wall
+    n_out = int(round(COLMAP_OUTLIER_SHARE * n_points))
+    nrm = rng.normal(size=(n_obj, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    k = np.ones(n_obj)
+    k[:n_out] = rng.uniform(1.5, 3.0, n_out)
+    face = rng.randint(0, 6, n_wall)
+    wall = rng.uniform(-COLMAP_ROOM, COLMAP_ROOM, (n_wall, 3))
+    wall[np.arange(n_wall), face // 2] = np.where(face % 2, COLMAP_ROOM, -COLMAP_ROOM)
+    pts_scene = np.concatenate([nrm * 0.5 * k[:, None], wall])
+    on_sphere = np.concatenate([k == 1, np.zeros(n_wall, bool)])
+    nrm = np.concatenate([nrm, np.zeros((n_wall, 3))])
+    pts = pts_scene @ (s0 * R0).T + t0
+    errs = rng.uniform(*COLMAP_ERR, n_points)
+    pids = 7 + 3 * np.arange(n_points)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    (root / "depths").mkdir(parents=True, exist_ok=True)
+    order = rng.permutation(n_views)
+    truth = dict(poses=[], names=[], xy=[], pid=[], zdepth=[], intr=intr, pts=pts, errs=errs,
+                 pids=pids, center=t0, radius=0.5 * s0, hw=(H, W))
+    images, tracks = [], np.zeros(n_points, np.int64)
+    for v in range(n_views):
+        theta = np.pi / 3 + (np.pi / 3) * (v % 4) / 4 + rng.uniform(-0.05, 0.05)
+        phi = 2 * np.pi * v / n_views + rng.uniform(-0.05, 0.05)
+        pose = orbit_pose(theta, phi, 2.0).astype(np.float64)
+        name = f"frame_{v:03d}.jpg"
+        rgb, z, _ = room_view(pose, intr, H, W)
+        write_jpeg(root / "images" / name, np.round(rgb * 255).astype(np.uint8),
+                   COLMAP_JPEG_QUALITY)
+        a, b = COLMAP_DEPTH_AFFINE
+        np.save(root / "depths" / f"frame_{v:03d}.npy", (a * z * s0 + b).astype(np.float32))
+        c2w = np.eye(4)
+        c2w[:3, :3] = R0 @ pose[:3, :3]
+        c2w[:3, 3] = s0 * R0 @ pose[:3, 3] + t0
+        cv = c2w.copy()
+        cv[:3, 1:3] *= -1
+        w2c = np.linalg.inv(cv)
+        cam = pts @ w2c[:3, :3].T + w2c[:3, 3]
+        uv = np.stack([intr[0] * cam[:, 0] / cam[:, 2] + intr[2],
+                       intr[1] * cam[:, 1] / cam[:, 2] + intr[3]], -1)
+        # the camera-to-point segment through the sphere (wall points it hides)
+        c = pose[:3, 3]
+        seg = pts_scene - c
+        sa, sb = np.sum(seg * seg, -1), seg @ c
+        sd = sb * sb - sa * (c @ c - 0.25)
+        t_in = (-sb - np.sqrt(np.maximum(sd, 0.0))) / sa
+        hidden = (sd > 0) & (t_in > 0) & (t_in < 1 - 1e-9)
+        facing = np.sum(nrm * (c - pts_scene), -1) > 0
+        outlier = np.arange(n_points) < n_out
+        seen = ((cam[:, 2] > 0) & np.where(on_sphere, facing, ~hidden | outlier)
+                & (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0) & (uv[:, 1] < H))
+        xy = uv[seen] + rng.normal(0, COLMAP_NOISE_PX, (int(seen.sum()), 2))
+        pid = pids[seen]
+        tracks += seen
+        n_un = int(round(COLMAP_UNTRACKED_SHARE * len(pid)))
+        xy = np.concatenate([xy, rng.uniform(0, 1, (n_un, 2)) * [W, H]])
+        pid = np.concatenate([pid, np.full(n_un, -1)])
+        images.append((int(order[v]) + 1, rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], name, xy, pid))
+        truth["poses"].append(c2w)
+        truth["names"].append(name)
+        truth["xy"].append(xy)
+        truth["pid"].append(pid)
+        truth["zdepth"].append(z * s0)
+    write_colmap_model(root / "sparse" / "0", W, H, intr, images,
+                       (pids, pts, errs, tracks))
+    truth["poses"] = np.stack(truth["poses"])
+    return truth
+
+
+def check_colmap_load(fd, truth, split="train", dense_tol=None):
+    """load_colmap's output against the written scene: poses under the
+    loader's own centre (the sparse points' mean) and scale (0.75 bound
+    over the 90th-percentile camera distance), the sparse tables against
+    the written tracks' projections, the aligned dense depth against the
+    true z-depth (median relative error within dense_tol, default
+    COLMAP_MAX_DENSE_REL_ERR: the keypoints land on whole pixels, so it
+    grows with the pixel's size).  Returns the readings; raises on a
+    failed gate."""
+    import numpy as np
+
+    keep = [i for i in range(len(truth["names"]))
+            if (i % COLMAP_TEST_EVERY != 0) == (split == "train")]
+    pts32 = truth["pts"].astype(np.float32)
+    center = pts32.mean(axis=0).astype(np.float64)
+    c = truth["poses"][keep, :3, 3] - center
+    scale = 0.75 * COLMAP_BOUND / np.percentile(np.linalg.norm(c, axis=1), 90)
+    pose_err = max(float(np.abs(fd.poses[:, :3, :3] - truth["poses"][keep, :3, :3]).max()),
+                   float(np.abs(fd.poses[:, :3, 3] - c * scale).max()))
+    H, W = truth["hw"]
+    err32 = truth["errs"].astype(np.float32)
+    mean_err = float(np.mean(err32))
+    row = {int(p): j for j, p in enumerate(truth["pids"])}
+    coord_bad, depth_rel, weight_rel = 0, 0.0, 0.0
+    dense_rel = []
+    for j, i in enumerate(keep):
+        xy, pid = truth["xy"][i], truth["pid"][i]
+        tr = pid >= 0
+        rc = np.round(xy[tr][:, ::-1]).astype(np.int64)
+        rc[:, 0] = rc[:, 0].clip(0, H - 1)
+        rc[:, 1] = rc[:, 1].clip(0, W - 1)
+        rows = np.array([row[int(p)] for p in pid[tr]], np.int64)
+        c2w = truth["poses"][i]
+        z = ((c2w[:3, 3] - truth["pts"][rows]) @ c2w[:3, 2]) * scale
+        w = 2.0 * np.exp(-((err32[rows] / mean_err) ** 2))
+        m = int(tr.sum())
+        if fd.sparse_weight is not None:
+            got_w = fd.sparse_weight[j]
+            coord_bad += int((fd.sparse_coords[j, :m] != rc).any(axis=1).sum()
+                             + (got_w[m:] != 0).sum())
+            depth_rel = max(depth_rel, float(np.abs(fd.sparse_depth[j, :m] / z - 1).max()))
+            weight_rel = max(weight_rel, float(np.abs(got_w[:m] / w - 1).max()))
+        if fd.depths is not None and fd.sparse_weight is not None:      # aligned
+            zt = truth["zdepth"][i]
+            hit = np.isfinite(zt)
+            dense_rel.append(np.abs(fd.depths[j][hit] / (zt[hit] * scale) - 1))
+    res = dict(views=len(keep), center=center.tolist(), scale=float(scale),
+               pose_max_abs_err=pose_err, sparse_coords_differing=coord_bad,
+               sparse_depth_max_rel_err=depth_rel, sparse_weight_max_rel_err=weight_rel,
+               sparse_points=int(0 if fd.sparse_weight is None else (fd.sparse_weight > 0).sum()))
+    fails = []
+    if pose_err > COLMAP_POSE_ATOL:
+        fails.append(f"poses {pose_err}")
+    if split != "test":
+        if coord_bad or depth_rel > 1e-5 or weight_rel > 1e-5:
+            fails.append(f"sparse tables: {coord_bad} coordinates differ, depth {depth_rel}, "
+                         f"weight {weight_rel}")
+        nf = fd.cam_near_far
+        sd = np.where(fd.sparse_weight > 0, fd.sparse_depth, np.nan)
+        if not np.allclose(nf, np.stack([np.nanmin(sd, 1), np.nanmax(sd, 1)], -1)):
+            fails.append("cam_near_far is not the views' depth range")
+    if dense_rel:
+        res["dense_median_rel_err"] = float(np.median(np.concatenate(dense_rel)))
+        if not res["dense_median_rel_err"] <= (dense_tol or COLMAP_MAX_DENSE_REL_ERR):
+            fails.append(f"aligned dense depth: median relative error "
+                         f"{res['dense_median_rel_err']}")
+    if fails:
+        raise AssertionError(f"load_colmap ({split}): {fails}")
+    res["scene_radius"] = truth["radius"] * scale
+    res["scene_center"] = ((truth["center"] - center) * scale).tolist()
+    return res
+
+
+def time_loaders(base: Path) -> dict:
+    """The COLMAP readers and load_colmap(with_images=False) at a real
+    model's size (LOADER_REAL: views, points, tracked keypoints a view,
+    track length), host seconds."""
+    import numpy as np
+
+    from mirres_restir_nerf_mesh_torch.data import colmap
+
+    L = LOADER_REAL
+    rng = np.random.RandomState(1)
+    n, P, K = L["images"], L["points"], L["keypoints"]
+    W, H = COLMAP_HW[1] * 3, COLMAP_HW[0] * 3
+    images = []
+    for v in range(n):
+        theta, phi = np.pi / 2 + rng.uniform(-0.3, 0.3), 2 * np.pi * v / n
+        c = 5.0 * np.array([np.sin(theta) * np.sin(phi), np.cos(theta),
+                            np.sin(theta) * np.cos(phi)])
+        f = -c / np.linalg.norm(c)
+        r = np.cross(f, [0, 1, 0])
+        r /= np.linalg.norm(r)
+        R = np.stack([r, np.cross(f, r), f])            # OpenCV rows: right, down, forward
+        xy = rng.uniform(0, 1, (K, 2)) * [W, H]
+        images.append((v + 1, rotmat2qvec(R), -R @ c, f"img_{v:04d}.jpg", xy,
+                       rng.randint(0, P, K).astype(np.int64)))
+    pts = rng.normal(size=(P, 3))
+    t0 = time.perf_counter()
+    write_colmap_model(base / "sparse" / "0", W, H, COLMAP_PINHOLE, images,
+                       (np.arange(P), pts, rng.uniform(0.2, 1.5, P), np.full(P, L["track"])))
+    res = {"write_s": time.perf_counter() - t0, **L}
+    sp = str(base / "sparse" / "0")
+    for name, fn in (("read_images_binary_s",
+                      lambda: colmap.read_images_binary(sp + "/images.bin")),
+                     ("read_points3d_binary_s",
+                      lambda: colmap.read_points3d_binary(sp + "/points3D.bin")),
+                     ("load_colmap_s", lambda: colmap.load_colmap(str(base), "train",
+                                                                  with_images=False))):
+        t0 = time.perf_counter()
+        out = fn()
+        res[name] = time.perf_counter() - t0
+    res["sparse_points_loaded"] = int((out.sparse_weight > 0).sum())
+    return res
+
+
+def time_read_jpeg(base: Path) -> dict:
+    """read_jpeg on JPEG_TIMED_HW frames of the room scene (write_jpeg at
+    4:2:0): as rendered (smooth, few coefficients a block) and with
+    Gaussian noise of 8 counts (about a photograph's bit rate); host seconds a
+    megapixel (median of 3) and bits a pixel of each, and the smooth
+    frame's decode held to its source within the encoder's loss."""
+    import numpy as np
+
+    from mirres_restir_nerf_mesh_torch.data.synthetic import orbit_pose
+    from mirres_restir_nerf_mesh_torch.utils.image_io import read_jpeg
+
+    H, W = JPEG_TIMED_HW
+    intr = np.array([0.9 * W, 0.9 * W, W / 2, H / 2])
+    img, _, _ = room_view(orbit_pose(1.1, 0.4, 2.0).astype(np.float64), intr, H, W)
+    rng = np.random.RandomState(2)
+    res = {"hw": [H, W]}
+    for name, sigma in (("room", 0.0), ("room with noise of 8 counts", 8.0)):
+        rgb = np.clip(np.round(img * 255 + rng.normal(0, sigma, img.shape)), 0, 255).astype(
+            np.uint8)
+        path = base / "timed.jpg"
+        write_jpeg(path, rgb, COLMAP_JPEG_QUALITY)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = read_jpeg(str(path))
+            times.append(time.perf_counter() - t0)
+        res[name] = {"bits_per_pixel": 8 * path.stat().st_size / (H * W),
+                     "s": statistics.median(times),
+                     "s_per_MP": statistics.median(times) / (H * W / 1e6),
+                     "mean_abs_err_counts": float(np.abs(got.astype(np.int64) - rgb).mean())}
+        if got.shape != rgb.shape or (sigma == 0 and not res[name]["mean_abs_err_counts"] < 2.0):
+            raise AssertionError(f"read_jpeg of the timed frame: {res}")
+    return res
+
+
+def check_dpt(dev, images) -> dict:
+    """The port's DPT (random_params at full width) on DPT_FRAMES frames,
+    resized to 384^2 as extract_depth does: the card against the port on
+    the CPU with TF32 off (atol DPT_ATOL of the CPU map's max), then ms a
+    frame on the card in fp32 with TF32 off, and at PyTorch's default (TF32
+    convolutions, which extract_depth runs with) (CUDA events, median of 5
+    batches of one frame)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mirres_restir_nerf_mesh_torch.depth import dpt
+
+    t0 = time.perf_counter()
+    sd, _ = dpt.random_params(0)
+    params_s = time.perf_counter() - t0
+    x = torch.as_tensor(images[:DPT_FRAMES]).permute(0, 3, 1, 2).float()
+    x = (F.interpolate(x, size=(384, 384), mode="bilinear", align_corners=False) - 0.5) / 0.5
+    cpu = dpt.build_dpt(sd, "cpu")
+    t0 = time.perf_counter()
+    ref = dpt.dpt_depth(cpu, x)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    card = dpt.build_dpt(sd, dev)
+    xd = x.to(dev)
+    got = dpt.dpt_depth(card, xd).cpu()
+    scale = max(float(ref.abs().max()), 1e-3)
+    err = float((got - ref).abs().max()) / scale
+    res = {"frames": DPT_FRAMES, "random_params_s": params_s, "cpu_s_per_frame": cpu_s / DPT_FRAMES,
+           "max_abs_err_of_max": err, "map_max": scale, "finite": bool(torch.isfinite(got).all())}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        for name, mm, conv in (("fp32 (TF32 off)", False, False),
+                               ("PyTorch's default: TF32 convolutions, fp32 matmuls", False, True)):
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = mm, conv
+            res[f"ms_per_frame {name}"] = cuda_ms(lambda: dpt.dpt_depth(card, xd[:1]), 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if not (res["finite"] and err <= DPT_ATOL):
+        raise AssertionError(f"DPT card vs CPU: {res}")
+    return res
+
+
+def check_dtu(base: Path) -> dict:
+    """A DTU scene of the sphere (cameras_sphere.npz with world_mat_i = K [R|t]
+    in a world shifted by (0.3, 0.1, -0.4), scale_mat_i mapping the scene to
+    it; PNG image/ and mask/) through load_dtu: the intrinsics and each
+    train view's pose (the scene's own) within 1e-4.  The scale_mat keeps
+    scale 1: decompose_projection, the reference's as the port's, drops
+    the scale of P from the camera centre (ROADMAP Queue C)."""
+    import numpy as np
+
+    from mirres_restir_nerf_mesh_torch.data.dtu import load_dtu
+    from mirres_restir_nerf_mesh_torch.data.synthetic import orbit_pose, render_sphere_image
+    from mirres_restir_nerf_mesh_torch.utils.image_io import write_png
+
+    H, W = DTU_HW
+    K = np.array([[150.0, 0, 81.5], [0, 148.0, 58.5], [0, 0, 1]])
+    s, t = 1.0, np.array([0.3, 0.1, -0.4])
+    scale_mat = np.eye(4)
+    scale_mat[:3, :3] *= s
+    scale_mat[:3, 3] = t
+    (base / "image").mkdir(parents=True)
+    (base / "mask").mkdir()
+    cams, poses = {}, []
+    for i in range(DTU_VIEWS):
+        pose = orbit_pose(1.2, 2 * np.pi * i / DTU_VIEWS, 2.0).astype(np.float64)
+        img = render_sphere_image(pose.astype(np.float32),
+                                  np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], np.float32), H, W)
+        write_png(str(base / "image" / f"{i:03d}.png"),
+                  np.round(img[..., :3] * 255).astype(np.uint8))
+        write_png(str(base / "mask" / f"{i:03d}.png"), np.round(img[..., 3] * 255).astype(np.uint8))
+        cv = pose.copy()
+        cv[:3, 1:3] *= -1
+        cv[:3, 3] = s * cv[:3, 3] + t                       # the camera in the world
+        w2c = np.linalg.inv(cv)
+        cams[f"world_mat_{i}"] = np.vstack([K @ w2c[:3], [0, 0, 0, 1]])
+        cams[f"scale_mat_{i}"] = scale_mat
+        poses.append(pose)
+    np.savez(base / "cameras_sphere.npz", **cams)
+    t0 = time.perf_counter()
+    fd = load_dtu(str(base), "train", bound=1.0, test_every=COLMAP_TEST_EVERY)
+    keep = [i for i in range(DTU_VIEWS) if i % COLMAP_TEST_EVERY != 0]
+    res = {"views": fd.num_frames, "s": time.perf_counter() - t0,
+           "pose_max_abs_err": float(np.abs(fd.poses - np.stack(poses)[keep]).max()),
+           "intrinsics": fd.intrinsics.tolist(), "images": list(fd.images.shape)}
+    if not (res["pose_max_abs_err"] <= 1e-4 and fd.images.shape == (len(keep), H, W, 4)
+            and np.allclose(fd.intrinsics, [K[0, 0], K[1, 1], K[0, 2], K[1, 2]], atol=1e-4)):
+        raise AssertionError(f"load_dtu: {res}")
+    return res
+
+
+def colmap_run(dev, counts, out_dir):
+    """Phase 4i: the repo's "your dataset" recipe on a COLMAP workspace of
+    the analytic sphere (write_colmap_scene), the counters zeroed just
+    before each run of ``mirres_restir_nerf_mesh_torch.main.main`` and read
+    just after:
+
+    1. load_colmap against the written scene (check_colmap_load: poses,
+       sparse tables, cam_near_far, the aligned dense depth), the loaders
+       at a real size, read_jpeg a megapixel, the port's DPT on the card
+       against the CPU, and a DTU scene through load_dtu;
+    2. stage 0: ``-O --data_format colmap --bound 2 --stage 0``, 500
+       iterations, marching grid 64; gates: val PSNR above 15, a mesh of
+       median vertex radius within 20% of the sphere's radius in the
+       normalized scene (about its normalized centre), 2 K4 launches a
+       step, one closest hit a training view in save_mesh, the sampler's
+       sparse-depth branch in 5-15% of the steps;
+    3. stage 1: ``--use_brdf --use_restir``, 10 iterations, 1024^2
+       textures; gates: loss finite, uncertain_count 0, 3 K4 launches a
+       step and the tracer's launches of every frame for the mesh's route;
+    4. ``--test``: every test frame's artifacts written and every EXR
+       finite, the tracer's launches, no K4."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.data import provider
+    from mirres_restir_nerf_mesh_torch.data.colmap import load_colmap
+    from mirres_restir_nerf_mesh_torch.export.meshio import read_ply
+    from mirres_restir_nerf_mesh_torch.utils.exr import read_exr
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_colmap_")
+    base = Path(tmp.name)
+    root, ws = base / "scene", base / "ws"
+    res, sparse_draws = {}, []
+    orig_draw = provider.RayDataset.draw
+
+    def draw(self, *a, **k):
+        d = orig_draw(self, *a, **k)
+        if d.use_sparse is not None:
+            sparse_draws.append(d.use_sparse)
+        return d
+
+    harness = None
+    try:
+        t0 = time.perf_counter()
+        truth = write_colmap_scene(root)
+        res["scene"] = {"views": len(truth["names"]), "points": len(truth["pts"]),
+                        "hw": list(COLMAP_HW), "write_s": time.perf_counter() - t0,
+                        "jpeg_bytes": sum(p.stat().st_size for p in (root / "images").iterdir())}
+        t0 = time.perf_counter()
+        fd = load_colmap(str(root), "train", bound=COLMAP_BOUND)
+        res["load_train"] = {"s": time.perf_counter() - t0, **check_colmap_load(fd, truth)}
+        res["load_test"] = check_colmap_load(load_colmap(str(root), "test", bound=COLMAP_BOUND),
+                                             truth, "test")
+        log("colmap loader: " + json.dumps({k: res[k] for k in ("scene", "load_train",
+                                                                 "load_test")}))
+        res["loaders_real_size"] = time_loaders(base / "real")
+        log("colmap readers at a real size: " + json.dumps(res["loaders_real_size"]))
+        res["read_jpeg"] = time_read_jpeg(base)
+        log("read_jpeg: " + json.dumps(res["read_jpeg"]))
+        res["dpt"] = check_dpt(dev, fd.images)
+        log("DPT: " + json.dumps(res["dpt"]))
+        res["dtu"] = check_dtu(base / "dtu")
+        log("load_dtu: " + json.dumps(res["dtu"]))
+        del fd
+        torch.cuda.empty_cache()
+
+        common = [str(root), "--workspace", str(ws), "-O", "--data_format", "colmap",
+                  "--bound", str(COLMAP_BOUND)]
+        argv = {
+            "stage0": common + ["--stage", "0", "--iters", str(COLMAP_STAGE0_ITERS),
+                                "--mcubes_reso", str(COLMAP_MCUBES_RESO), "--n_eval", "1",
+                                "--n_ckpt", "1"],
+            "stage1": common + ["--stage", "1", "--use_brdf", "--use_restir", "--iters",
+                                str(COLMAP_STAGE1_ITERS), "--texture_size", str(COLMAP_TEXTURE),
+                                "--n_eval", "1", "--n_ckpt", "1"],
+            "test": common + ["--stage", "1", "--test", "--use_brdf", "--use_restir",
+                              "--eval_spp", "0", "--relight_spp", "0", "--texture_size",
+                              str(COLMAP_TEXTURE)],
+        }
+        n_views = len(truth["names"])
+        n_eval = len(range(0, n_views, COLMAP_TEST_EVERY))        # val and test views
+        n_train = n_views - n_eval
+        harness = CliHarness(counts)
+        provider.RayDataset.draw = draw
+
+        # ---- stage 0
+        r0, tr0, metrics = harness.run(argv["stage0"], ws, dev)
+        verts, tris = read_ply(str(ws / "mesh_0.ply"))
+        c = np.asarray(res["load_train"]["scene_center"])
+        radius = res["load_train"]["scene_radius"]
+        logs = [m for m in metrics if "it_per_s" in m]
+        val = [m for m in metrics if "val_psnr" in m]
+        n_sparse = int(torch.stack(sparse_draws).sum()) if sparse_draws else 0
+        r0.update(faces=int(tris.shape[0]), median_vertex_radius=float(
+            np.median(np.linalg.norm(verts - c, axis=1))) if len(verts) else 0.0,
+            scene_radius=radius, it_per_s=logs[-1]["it_per_s"], loss_last=logs[-1]["loss"],
+            num_rays_last=tr0.cfg.num_rays, val_psnr=val[-1]["val_psnr"] if val else None,
+            scene_aabb=list(tr0.cfg.scene_aabb or []), sparse_steps=n_sparse,
+            sparse_share=n_sparse / max(len(sparse_draws), 1), draws=len(sparse_draws))
+        la = r0["launches"]
+        r0["culling_route"] = "tile (K1)" if la["queue_trace"] else "dense (K3)"
+        res["stage0"] = r0
+        log("colmap stage 0: " + json.dumps(r0))
+        fails = []
+        if not (r0["val_psnr"] or 0.0) > CLI_MIN_VAL_PSNR:
+            fails.append(f"val PSNR {r0['val_psnr']}")
+        if (tris.shape[0] == 0
+                or not abs(r0["median_vertex_radius"] / radius - 1) <= COLMAP_RADIUS_TOL):
+            fails.append(f"mesh: {tris.shape[0]} faces, median radius "
+                         f"{r0['median_vertex_radius']} (sphere {radius})")
+        if la["scatter_add"] != K4_STAGE0_LAUNCHES * COLMAP_STAGE0_ITERS:
+            fails.append(f"{la['scatter_add']} K4 launches in {COLMAP_STAGE0_ITERS} steps")
+        # at bound 2 save_mesh culls two cascades (mesh_0, mesh_1), each one
+        # closest hit a training view
+        n_meshes = len(list(ws.glob("mesh_*.ply")))
+        r0["meshes"] = n_meshes
+        if (la["queue_trace"] + la["dense_hit"] != n_train * n_meshes or la["dense_occluded"]
+                or la["grid_trace"]):
+            fails.append(f"save_mesh launches {la}, one closest hit a view ({n_train}) and "
+                         f"mesh ({n_meshes})")
+        if (len(sparse_draws) != COLMAP_STAGE0_ITERS
+                or not COLMAP_SPARSE_SHARE[0] <= r0["sparse_share"] <= COLMAP_SPARSE_SHARE[1]):
+            fails.append(f"sparse-depth branch in {n_sparse} of {len(sparse_draws)} draws")
+        if fails:
+            raise AssertionError(f"colmap stage 0 failed: {fails}")
+
+        dense = takes_dense_route(verts, tris, dev)
+        route = "dense (K3)" if dense else "tile (K1)"
+
+        # ---- stage 1
+        r1, tr1, metrics = harness.run(argv["stage1"], ws, dev)
+        last = [m for m in metrics if "it_per_s" in m][-1]
+        r1.update(route=route, faces=int(tr1.tris.shape[0]), loss_last=last["loss"],
+                  psnr_last=last.get("psnr"), uncertain_count=last.get("uncertain_count"),
+                  it_per_s=last["it_per_s"], val=[m for m in metrics if "val_psnr_brdf" in m][-1:])
+        res["stage1"] = r1
+        log("colmap stage 1: " + json.dumps(r1))
+        la = r1["launches"]
+        frames1 = COLMAP_STAGE1_ITERS + 2 * n_eval
+        fails = []
+        if not np.isfinite(r1["loss_last"]):
+            fails.append(f"loss {r1['loss_last']}")
+        if r1["uncertain_count"] != 0:
+            fails.append(f"uncertain_count {r1['uncertain_count']}")
+        if la["scatter_add"] != K4_STEP_LAUNCHES * COLMAP_STAGE1_ITERS:
+            fails.append(f"{la['scatter_add']} K4 launches in {COLMAP_STAGE1_ITERS} steps")
+        if not restir_frame_launches(la, frames1, dense, CLI_SPP) or la["grid_trace"]:
+            fails.append(f"tracer launches {la} for {frames1} frames on the {route} route")
+        for f in ("mesh_0.obj", "feat0_0.png", "feat1_0.png"):
+            if not (ws / f).exists():
+                fails.append(f"{f} missing")
+        if fails:
+            raise AssertionError(f"colmap stage 1 failed: {fails}")
+
+        # ---- the test renders
+        rt, _, _ = harness.run(argv["test"], ws, dev)
+        results = ws / "results"
+        want = {f"ngp_{i:04d}_{a}" for i in range(n_eval) for a in CLI_ARTIFACTS}
+        got = {p.name for p in results.iterdir()}
+        exr_finite = {p.name: bool(np.isfinite(read_exr(str(p))).all())
+                      for p in sorted(results.glob("*.exr"))}
+        rt.update(route=route, artifacts_missing=sorted(want - got),
+                  exr_finite=all(exr_finite.values()))
+        res["test"] = rt
+        log("colmap test: " + json.dumps(rt))
+        la = rt["launches"]
+        if (want - got or not rt["exr_finite"] or la["scatter_add"] or la["grid_trace"]
+                or not restir_frame_launches(la, 2 * n_eval, dense, CLI_SPP)):
+            raise AssertionError(f"colmap test failed: missing {sorted(want - got)}, EXRs "
+                                 f"finite {exr_finite}, launches {la} for {2 * n_eval} frames")
+        if out_dir is not None:
+            for f in ("log_ngp.txt", "metrics_ngp.jsonl"):
+                shutil.copy(ws / f, Path(out_dir) / f"colmap_{f}")
+        return res
+    finally:
+        provider.RayDataset.draw = orig_draw
+        if harness is not None:
+            harness.close()
         tmp.cleanup()
 
 
@@ -2269,6 +3099,18 @@ def main(argv=None) -> int:
         f"{cli['stage1']['uncertain_count']:.0f}")
 
     phase_done("4h")
+    # ---- 4i. the "your dataset" recipe: a COLMAP workspace through the CLI
+    colmap = colmap_run(dev, (zero_counts, read_counts), out_dir)
+    torch.cuda.empty_cache()
+    log(f"colmap: stage 0 {colmap['stage0']['it_per_s']:.2f} it/s under the Trainer, val PSNR "
+        f"{colmap['stage0']['val_psnr']:.2f}, sparse-depth branch in "
+        f"{colmap['stage0']['sparse_steps']} of {colmap['stage0']['draws']} steps; stage 1 "
+        f"{statistics.median(colmap['stage1']['stage1_step_s']):.3f} s a step (median), route "
+        f"{colmap['stage1']['route']}; read_jpeg "
+        f"{colmap['read_jpeg']['room with noise of 8 counts']['s_per_MP']:.3f} s a megapixel "
+        f"(photo-like); DPT {colmap['dpt']['ms_per_frame fp32 (TF32 off)']:.1f} ms a frame")
+
+    phase_done("4i")
     # ---- 5. reference check: card vs CPU on a small fp32 frame
     Hs = Ws = 64
     cam_s = camera(Hs, Ws, "cpu")
@@ -2321,7 +3163,9 @@ def main(argv=None) -> int:
              "stage0_step": launches_s0, "stage0_learning": learn["launches"],
              "stage0_export": learn["export"]["launches"],
              "cli_stage0": cli["stage0"]["launches"], "cli_stage1": cli["stage1"]["launches"],
-             "cli_test": cli["test"]["launches"]}
+             "cli_test": cli["test"]["launches"], "colmap_stage0": colmap["stage0"]["launches"],
+             "colmap_stage1": colmap["stage1"]["launches"],
+             "colmap_test": colmap["test"]["launches"]}
     # K3's headlines: the primary rays (closest), the direct-shadow batch
     # (any hit: 64 of the lighter small-mesh frame's 66 any-hit launches)
     k3c, k3a = k3_checks[0], k3_checks[3]
@@ -2389,7 +3233,7 @@ def main(argv=None) -> int:
              "small_frame": small, "small_restir_frame": small_r, "train_step": train, "restir_frame": frame_r, "restir_train_step": train_r,
              "reference_check": agree,
              "train_reference_check": agree_train, "restir_reference_check": agree_restir,
-             "stage0_step": stage0, "stage0_learning": learn, "cli": cli,
+             "stage0_step": stage0, "stage0_learning": learn, "cli": cli, "colmap": colmap,
              "stage0_reference_check": agree_stage0},
             indent=1))
     print(json.dumps({"kernels": kernels}))

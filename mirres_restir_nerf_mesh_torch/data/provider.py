@@ -7,7 +7,8 @@ gathered there.  The draws of a batch (frames, pixels, the random
 background, the sparse-depth branch) come in as ``SampleDraws``, drawn by
 ``RayDataset.draw`` from a generator or passed in.  ``load_blender`` reads a
 blender-format scene (``transforms_{split}.json`` or ``transforms.json``)
-through the port's own PNG decoder (``utils/image_io.py``).
+through the port's own PNG and JPEG decoders (``utils/image_io.py``);
+``data/colmap.py`` and ``data/dtu.py`` load the other two formats.
 """
 
 from __future__ import annotations
@@ -22,29 +23,38 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..utils.image_io import read_png
+from ..utils.image_io import read_image
 from .rays import get_rays, nerf_matrix_to_ngp, perspective_matrix, pixel_dirs
 
 
+def resize_bilinear_aa(arr: np.ndarray, H: int, W: int) -> np.ndarray:
+    """float32 [h, w, C] -> [H, W, C] by the antialiased bilinear filter (the
+    triangle filter widened by the scale when shrinking, as PIL's BILINEAR)."""
+    x = torch.from_numpy(np.ascontiguousarray(arr.transpose(2, 0, 1)))[None]
+    x = F.interpolate(x, size=(H, W), mode="bilinear", antialias=True, align_corners=False)
+    return x[0].permute(1, 2, 0).numpy()
+
+
 def _load_image(path: str, downscale: int = 1) -> np.ndarray:
-    """A PNG as float32 [H, W, C] in [0, 1] (gray -> 3 channels); with
-    downscale > 1 resized to (H // d, W // d) by the antialiased bilinear
-    filter (the triangle filter widened by the scale, as PIL's BILINEAR)."""
-    arr = read_png(path).astype(np.float32) / 255.0
+    """A PNG or JPEG (told apart by its signature) as float32 [H, W, C] in
+    [0, 1] (gray -> 3 channels); with downscale > 1 resized to
+    (H // d, W // d) by ``resize_bilinear_aa``, RGBA premultiplied by its
+    alpha as PIL does."""
+    arr = read_image(path).astype(np.float32) / 255.0
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
     if downscale > 1:
-        H, W = arr.shape[:2]
-        x = torch.from_numpy(np.ascontiguousarray(arr.transpose(2, 0, 1)))[None]
-        rgba = x.shape[1] == 4
-        if rgba:      # RGBA resizes premultiplied by its alpha, as PIL does
-            x = torch.cat([x[:, :3] * x[:, 3:], x[:, 3:]], dim=1)
-        x = F.interpolate(x, size=(H // downscale, W // downscale), mode="bilinear",
-                          antialias=True, align_corners=False).clamp(0.0, 1.0)
-        if rgba:
-            a = x[:, 3:]
-            x = torch.cat([torch.where(a > 0, (x[:, :3] / a).clamp(0.0, 1.0), 0.0), a], dim=1)
-        arr = x[0].permute(1, 2, 0).numpy()
+        H, W = arr.shape[0] // downscale, arr.shape[1] // downscale
+        if arr.shape[-1] == 4:
+            a = arr[..., 3:]
+            x = np.clip(resize_bilinear_aa(np.concatenate([arr[..., :3] * a, a], -1), H, W),
+                        0.0, 1.0)
+            a = x[..., 3:]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                rgb = np.where(a > 0, np.clip(x[..., :3] / a, 0.0, 1.0), 0.0)
+            arr = np.concatenate([rgb, a], -1).astype(np.float32)
+        else:
+            arr = np.clip(resize_bilinear_aa(arr, H, W), 0.0, 1.0)
     return arr
 
 
@@ -63,6 +73,7 @@ class FrameData:
     sparse_depth: Optional[np.ndarray] = None   # [N, M] float32
     sparse_weight: Optional[np.ndarray] = None  # [N, M] float32 (0 = padding)
     cam_near_far: Optional[np.ndarray] = None   # [N, 2] per-view near / far
+    pts3d: Optional[np.ndarray] = None          # [P, 3] sparse points (colmap), scene-scaled
 
     @property
     def num_frames(self) -> int:

@@ -84,7 +84,10 @@ def export_stage0_mesh(density_fn: Callable[[torch.Tensor], torch.Tensor], works
         if cas > 0 and meshes:
             inner_b = min(2.0 ** (cas - 1), bound)
             t = t[np.abs(v[t].mean(axis=1)).max(axis=-1) > inner_b]
-        if visibility_culling and dataset is not None:
+        # an outer cascade can keep no face once the inner box's are cut (a
+        # compact object): nothing to cull (the reference builds a tracer on
+        # the empty mesh there and fails)
+        if visibility_culling and dataset is not None and len(t):
             t = t[~mark_unseen_triangles(v, t, dataset.poses, dataset.intrinsics, dataset.H,
                                          dataset.W, device=device)]
         v, t = clean_components(v, t, clean_min_f, float(clean_min_d) / 100.0 * 2 * cas_bound)

@@ -5,9 +5,10 @@
     python3 -m mirres_restir_nerf_mesh_torch.main <scene> --workspace ws --stage 1 --test [--envmap_path x.hdr]
 
 The argparse surface is generated from the Config dataclass, so every flag
-keeps its name and default.  It runs on the card; ``main(argv,
-device="cpu")`` runs on the CPU.  Blender-format scenes only: the colmap
-and dtu loaders are not ported yet.
+keeps its name and default.  ``--data_format`` picks the loader: ``nerf``
+(blender-format ``transforms*.json``), ``colmap`` (a COLMAP workspace, as
+``configs/general_config_for_your_dataset.txt`` runs it) or ``dtu``.  It
+runs on the card; ``main(argv, device="cpu")`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -58,9 +59,16 @@ def config_from_args(argv=None) -> Config:
 
 
 def load_dataset(cfg: Config, split: str):
-    if cfg.data_format in ("colmap", "dtu"):
-        raise NotImplementedError(f"the {cfg.data_format} loader is not ported yet "
-                                  "(ROADMAP Queue A item 4); blender-format scenes only")
+    if cfg.data_format == "colmap":
+        from .data.colmap import load_colmap
+
+        return load_colmap(cfg.path, split=split, downscale=cfg.downscale, scale=cfg.scale,
+                           offset=cfg.offset, bound=cfg.bound,
+                           enable_cam_center=cfg.enable_cam_center)
+    if cfg.data_format == "dtu":
+        from .data.dtu import load_dtu
+
+        return load_dtu(cfg.path, split=split, downscale=cfg.downscale, bound=cfg.bound)
     from .data.provider import load_blender
 
     scale = cfg.scale if cfg.scale > 0 else 0.8

@@ -7,11 +7,20 @@ on numpy and the standard library alone: no PIL, no cv2.
 - PNG: ``read_png`` decodes 8-bit gray, gray + alpha, RGB and RGBA,
   non-interlaced, all five filter types; ``write_png`` writes filter type 0
   through ``zlib``.
+- JPEG: ``read_jpeg`` decodes baseline (sequential DCT, Huffman, 8-bit)
+  files: gray or YCbCr at 4:4:4, 4:2:2 and 4:2:0, restart markers, by
+  libjpeg's rules (the ``islow`` integer IDCT, "fancy" triangular chroma
+  upsampling, its fixed-point colour conversion), so its pixels equal what
+  PIL reads through libjpeg-turbo.  Progressive, arithmetic-coded,
+  lossless, 12-bit and CMYK files raise ``ValueError``.
+- ``read_image``: PNG or JPEG by the file's signature; ``read_rgb`` the
+  same as float RGB.
 - EXR: the pure-numpy codec of ``utils/exr.py``.
 """
 
 from __future__ import annotations
 
+import functools
 import re
 import struct
 import zlib
@@ -249,6 +258,399 @@ def read_png(path: str) -> np.ndarray:
         prev = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prev, C)
     return out.reshape(H, W) if C == 1 else out.reshape(H, W, C)
 
+
+# ------------------------------------------------------------------ JPEG
+
+# natural (row-major) index of the k-th coefficient in zigzag order
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
+_SOF_UNSUPPORTED = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+                    0xC6: "differential progressive", 0xC7: "differential lossless",
+                    0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
+                    0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded differential",
+                    0xCE: "arithmetic-coded differential progressive",
+                    0xCF: "arithmetic-coded differential lossless"}
+
+
+@functools.lru_cache(maxsize=8)
+def _huffman_lookup(counts: bytes, symbols: bytes, ac: bool) -> list:
+    """A 16-bit peek -> (n, run, value) list for one Huffman table (kept
+    for the next files, which mostly carry the same tables; read only).
+
+    n > 0: the code and its extra bits fit in the peek; consume n bits, the
+    coefficient is ``value`` after ``run`` zeros (run -1: end of block).
+    n < 0: a code of -n bits whose extra bits (``value`` of them) lie past
+    the peek.  n == 0: no code starts with these bits."""
+    length = np.zeros(1 << 16, np.int64)
+    sym = np.zeros(1 << 16, np.int64)
+    code, k = 0, 0
+    for L in range(1, 17):
+        for _ in range(counts[L - 1]):
+            lo = code << (16 - L)
+            length[lo: lo + (1 << (16 - L))] = L
+            sym[lo: lo + (1 << (16 - L))] = symbols[k]
+            code, k = code + 1, k + 1
+        code <<= 1
+    peek = np.arange(1 << 16, dtype=np.int64)
+    s = sym & 15 if ac else sym
+    run = sym >> 4 if ac else np.zeros_like(sym)
+    tot = length + s
+    fits = (length > 0) & (tot <= 16)
+    bits = (peek >> np.clip(16 - tot, 0, 16)) & ((1 << s) - 1)
+    val = np.where((s > 0) & (bits < (1 << np.maximum(s - 1, 0))), bits - (1 << s) + 1, bits)
+    n = np.where(fits, tot, -length)
+    if ac:
+        eob = (sym == 0) & (length > 0)
+        run = np.where(eob & fits, -1, run)
+        bad = (s == 0) & (run > 0) & (run < 15)        # EOBn: progressive only
+        n = np.where(bad, 0, n)
+    val = np.where(fits, val, s)
+    return list(zip(n.tolist(), run.tolist(), val.tolist()))
+
+
+def _extend(bits: int, s: int) -> int:
+    return bits - (1 << s) + 1 if bits < (1 << (s - 1)) else bits
+
+
+def _decode_segment(seg: bytes, blocks, comp_of, dc_tabs, ac_tabs, coef, path):
+    """Entropy-decode one restart interval: ``blocks`` (flat block indices
+    into ``coef``, 64 zigzag entries each) in scan order, ``comp_of`` their
+    scan component; DC predictions start at 0."""
+    data = np.frombuffer(seg + b"\0" * 8, np.uint8).astype(np.uint32)
+    win = ((data[:-3] << 24) | (data[1:-2] << 16) | (data[2:-1] << 8) | data[3:]).tolist()
+    p = 0
+    pred = [0] * len(dc_tabs)
+    for b, ci in zip(blocks, comp_of):
+        base = b * 64
+        n, _, v = dc_tabs[ci][(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+        if n > 0:
+            p += n
+        elif n < 0:
+            p -= n
+            if v:
+                bits = (win[p >> 3] >> (32 - (p & 7) - v)) & ((1 << v) - 1)
+                p += v
+                v = _extend(bits, v)
+        else:
+            raise ValueError(f"corrupt JPEG (bad DC code): {path}")
+        pred[ci] += v
+        coef[base] = pred[ci]
+        act = ac_tabs[ci]
+        k = 1
+        while k < 64:
+            n, r, v = act[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+            if n > 0:
+                p += n
+                if r < 0:
+                    break
+                k += r
+            elif n < 0:
+                p -= n
+                k += r
+                bits = (win[p >> 3] >> (32 - (p & 7) - v)) & ((1 << v) - 1)
+                p += v
+                v = _extend(bits, v)
+            else:
+                raise ValueError(f"corrupt JPEG (bad AC code): {path}")
+            if k > 63:
+                raise ValueError(f"corrupt JPEG (coefficient past 63): {path}")
+            coef[base + k] = v
+            k += 1
+    if (p + 7) >> 3 > len(seg):
+        raise ValueError(f"corrupt JPEG (entropy data ran out): {path}")
+
+
+def _scan_segments(buf: bytes, pos: int):
+    """The entropy-coded data from ``pos``: (unstuffed restart intervals,
+    the position of the marker that ends the scan)."""
+    arr = np.frombuffer(buf, np.uint8)
+    ff = np.nonzero(arr[pos:-1] == 0xFF)[0] + pos
+    nxt = arr[ff + 1]
+    marks = ff[(nxt != 0) & (nxt != 0xFF)]
+    rst = (arr[marks + 1] >= 0xD0) & (arr[marks + 1] <= 0xD7)
+    end = int(marks[~rst][0]) if (~rst).any() else len(buf)
+    cuts = [int(m) for m in marks[rst] if m < end]
+    segs, start = [], pos
+    for c in cuts + [end]:
+        segs.append(buf[start:c].replace(b"\xff\x00", b"\xff"))
+        start = c + 2
+    return segs, end
+
+
+def _idct_1d(x, shift):
+    """libjpeg's jidctint.c (``islow``) butterfly along axis 1 of int64
+    x [N, 8, ...]: the eight outputs DESCALEd by ``shift`` bits."""
+    z2, z3 = x[:, 2], x[:, 6]
+    z1 = (z2 + z3) * 4433
+    tmp2 = z1 + z3 * -15137
+    tmp3 = z1 + z2 * 6270
+    tmp0 = (x[:, 0] + x[:, 4]) << 13
+    tmp1 = (x[:, 0] - x[:, 4]) << 13
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = x[:, 7], x[:, 5], x[:, 3], x[:, 1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * 9633
+    t0, t1, t2, t3 = t0 * 2446, t1 * 16819, t2 * 25172, t3 * 12299
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
+    r = 1 << (shift - 1)
+    out = [tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+           tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3]
+    return np.stack([(o + r) >> shift for o in out], axis=1)
+
+
+def _idct_islow(blocks: np.ndarray) -> np.ndarray:
+    """Dequantized coefficients [N, 8, 8] (row = vertical frequency) ->
+    uint8 samples [N, 8, 8], bit for bit as libjpeg's ``jpeg_idct_islow``
+    (columns first with 2 extra bits, then rows; its range-limit table,
+    which wraps what lies beyond [-512, 511])."""
+    ws = _idct_1d(blocks.astype(np.int64), 13 - 2)
+    out = _idct_1d(ws.transpose(0, 2, 1), 13 + 2 + 3).transpose(0, 2, 1)
+    x = out & 1023
+    table = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(384),
+                            np.arange(0, 128)]).astype(np.uint8)
+    return table[x]
+
+
+def _fancy_h2(c: np.ndarray) -> np.ndarray:
+    """libjpeg's h2v1 "fancy" upsampling along axis 1 of int c [H, w]:
+    (3 nearer + 1 farther + 1 or 2) >> 2, the edge samples repeated."""
+    pad = np.concatenate([c[:, :1], c, c[:, -1:]], axis=1)
+    out = np.empty((c.shape[0], 2 * c.shape[1]), np.int64)
+    out[:, 0::2] = (3 * c + pad[:, :-2] + 1) >> 2
+    out[:, 1::2] = (3 * c + pad[:, 2:] + 2) >> 2
+    return out
+
+
+def _fancy_h2v2(c: np.ndarray) -> np.ndarray:
+    """libjpeg's h2v2 "fancy" upsampling of int c [h, w]: column sums
+    3 nearer + 1 farther row, then (3 nearer + 1 farther + 8 or 7) >> 4
+    across; rows and columns past the edges repeat the last real one."""
+    rows = np.concatenate([c[:1], c, c[-1:]], axis=0)
+    cs = np.empty((2 * c.shape[0], c.shape[1]), np.int64)
+    cs[0::2] = 3 * c + rows[:-2]
+    cs[1::2] = 3 * c + rows[2:]
+    pad = np.concatenate([cs[:, :1], cs, cs[:, -1:]], axis=1)
+    out = np.empty((cs.shape[0], 2 * cs.shape[1]), np.int64)
+    out[:, 0::2] = (3 * cs + pad[:, :-2] + 8) >> 4
+    out[:, 1::2] = (3 * cs + pad[:, 2:] + 7) >> 4
+    return out
+
+
+def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
+    """libjpeg's jdcolor.c fixed-point YCbCr -> RGB (16 fraction bits)."""
+    one_half = 1 << 15
+
+    def fix(v):
+        return int(v * (1 << 16) + 0.5)
+
+    cb, cr = cb - 128, cr - 128
+    r = y + ((fix(1.40200) * cr + one_half) >> 16)
+    g = y + ((-fix(0.34414) * cb + one_half - fix(0.71414) * cr) >> 16)
+    b = y + ((fix(1.77200) * cb + one_half) >> 16)
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """A baseline JPEG as uint8 [H, W] (gray) or [H, W, 3] (RGB), decoded
+    by libjpeg's rules (see the module docstring).  The entropy decode is a
+    Python loop; the rest runs on whole arrays."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if not buf.startswith(b"\xff\xd8"):
+        raise ValueError(f"not a JPEG file: {path}")
+    qt, huff, frame, comps = {}, {}, None, []
+    restart, adobe, jfif = 0, None, False
+    coef = None
+    pos = 2
+    while pos < len(buf):
+        if buf[pos] != 0xFF:
+            raise ValueError(f"corrupt JPEG (no marker at byte {pos}): {path}")
+        while buf[pos] == 0xFF:
+            pos += 1
+        m = buf[pos]
+        pos += 1
+        if m == 0xD9:                                       # EOI
+            break
+        if 0xD0 <= m <= 0xD7 or m == 0x01:
+            continue
+        (size,) = struct.unpack_from(">H", buf, pos)
+        seg = buf[pos + 2: pos + size]
+        pos += size
+        if m in _SOF_UNSUPPORTED:
+            raise ValueError(f"unsupported JPEG ({_SOF_UNSUPPORTED[m]}): {path}")
+        if m in (0xC0, 0xC1):                               # baseline / extended, Huffman
+            prec, Y, X, nf = struct.unpack_from(">BHHB", seg)
+            if prec != 8:
+                raise ValueError(f"unsupported JPEG ({prec}-bit samples): {path}")
+            if Y == 0:
+                raise ValueError(f"unsupported JPEG (height in a DNL marker): {path}")
+            comps = [dict(id=seg[6 + 3 * i], h=seg[7 + 3 * i] >> 4, v=seg[7 + 3 * i] & 15,
+                          tq=seg[8 + 3 * i]) for i in range(nf)]
+            frame = (Y, X)
+        elif m == 0xC4:                                     # DHT
+            i = 0
+            while i < len(seg):
+                tc_th = seg[i]
+                counts = bytes(seg[i + 1: i + 17])
+                syms = bytes(seg[i + 17: i + 17 + sum(counts)])
+                huff[(tc_th >> 4, tc_th & 15)] = (counts, syms)
+                i += 17 + sum(counts)
+        elif m == 0xDB:                                     # DQT
+            i = 0
+            while i < len(seg):
+                pq, tq = seg[i] >> 4, seg[i] & 15
+                n = 128 if pq else 64
+                q = np.frombuffer(seg[i + 1: i + 1 + n], ">u2" if pq else np.uint8)
+                nat = np.empty(64, np.int64)
+                nat[_ZIGZAG] = q
+                qt[tq] = nat
+                i += 1 + n
+        elif m == 0xDD:                                     # DRI
+            (restart,) = struct.unpack_from(">H", seg)
+        elif m == 0xE0 and seg.startswith(b"JFIF\0"):
+            jfif = True
+        elif m == 0xEE and seg.startswith(b"Adobe") and len(seg) >= 12:
+            adobe = seg[11]
+        elif m == 0xDA:                                     # SOS
+            if frame is None:
+                raise ValueError(f"corrupt JPEG (scan before frame header): {path}")
+            coef, pos = _decode_scan(buf, pos, seg, frame, comps, qt, huff, restart, coef,
+                                     path)
+    if coef is None:
+        raise ValueError(f"JPEG without a scan: {path}")
+    return _reconstruct(frame, comps, coef, adobe, jfif, path)
+
+
+def _geometry(frame, comps):
+    Y, X = frame
+    hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+    mx, my = -(-X // (8 * hmax)), -(-Y // (8 * vmax))
+    for c in comps:
+        c["bw"], c["bh"] = mx * c["h"], my * c["v"]
+        c["w"], c["hgt"] = -(-X * c["h"] // hmax), -(-Y * c["v"] // vmax)
+    return hmax, vmax, mx, my
+
+
+def _decode_scan(buf, pos, sos, frame, comps, qt, huff, restart, coef, path):
+    """One baseline scan (interleaved, or one component alone) into the
+    flat zigzag coefficient list; returns (coef, position after the scan)."""
+    hmax, vmax, mx, my = _geometry(frame, comps)
+    if coef is None:
+        offs = np.cumsum([0] + [c["bw"] * c["bh"] for c in comps])
+        for c, o in zip(comps, offs[:-1]):
+            c["off"] = int(o)
+        coef = [0] * (int(offs[-1]) * 64)
+    ns = sos[0]
+    by_id = {c["id"]: c for c in comps}
+    sc = [by_id[sos[1 + 2 * i]] for i in range(ns)]
+    tabs = [(sos[2 + 2 * i] >> 4, sos[2 + 2 * i] & 15) for i in range(ns)]
+    ss, se, ahl = sos[1 + 2 * ns], sos[2 + 2 * ns], sos[3 + 2 * ns]
+    if (ss, se, ahl) != (0, 63, 0):
+        raise ValueError(f"unsupported JPEG (spectral selection / approximation): {path}")
+    for c in sc:
+        if "q" not in c:
+            if c["tq"] not in qt:
+                raise ValueError(f"corrupt JPEG (missing quantization table): {path}")
+            c["q"] = qt[c["tq"]]
+    try:
+        dc = [_huffman_lookup(*huff[(0, t[0])], False) for t in tabs]
+        ac = [_huffman_lookup(*huff[(1, t[1])], True) for t in tabs]
+    except KeyError as e:
+        raise ValueError(f"corrupt JPEG (missing Huffman table {e}): {path}") from None
+    if ns == 1:                          # non-interleaved: the component's own block grid
+        c = sc[0]
+        nbx, nby = -(-c["w"] // 8), -(-c["hgt"] // 8)
+        r, q = np.divmod(np.arange(nbx * nby), nbx)
+        blocks = c["off"] + r * c["bw"] + q
+        comp_of = np.zeros(blocks.shape, np.int64)
+        per_mcu = 1
+    else:
+        mcu = [(i, v, h) for i, c in enumerate(sc) for v in range(c["v"]) for h in range(c["h"])]
+        ci = np.array([t[0] for t in mcu])
+        vv = np.array([t[1] for t in mcu])
+        hh = np.array([t[2] for t in mcu])
+        off = np.array([sc[i]["off"] for i in ci])
+        bw = np.array([sc[i]["bw"] for i in ci])
+        cv = np.array([sc[i]["v"] for i in ci])
+        ch = np.array([sc[i]["h"] for i in ci])
+        mr, mc = np.divmod(np.arange(mx * my), mx)
+        blocks = (off + (mr[:, None] * cv + vv) * bw + mc[:, None] * ch + hh).reshape(-1)
+        comp_of = np.broadcast_to(ci, (mx * my, len(mcu))).reshape(-1)
+        per_mcu = len(mcu)
+    segs, end = _scan_segments(buf, pos)
+    step = restart * per_mcu if restart else len(blocks)
+    if len(segs) != -(-len(blocks) // step):
+        raise ValueError(f"corrupt JPEG ({len(segs)} restart intervals, "
+                         f"{-(-len(blocks) // step)} expected): {path}")
+    blocks, comp_of = blocks.tolist(), comp_of.tolist()
+    for k, s in enumerate(segs):
+        _decode_segment(s, blocks[k * step:(k + 1) * step], comp_of[k * step:(k + 1) * step],
+                        dc, ac, coef, path)
+    return coef, end
+
+
+def _reconstruct(frame, comps, coef, adobe, jfif, path):
+    """Dequantize, IDCT, upsample the chroma and convert the colours."""
+    Y, X = frame
+    hmax, vmax, _, _ = _geometry(frame, comps)
+    allc = np.asarray(coef, np.int64).reshape(-1, 64)
+    planes = []
+    for c in comps:
+        if "q" not in c:
+            raise ValueError(f"corrupt JPEG (component {c['id']} in no scan): {path}")
+        z = allc[c["off"]: c["off"] + c["bw"] * c["bh"]]
+        nat = np.empty_like(z)
+        nat[:, _ZIGZAG] = z
+        pix = _idct_islow((nat * c["q"]).reshape(-1, 8, 8))
+        plane = pix.reshape(c["bh"], c["bw"], 8, 8).transpose(0, 2, 1, 3).reshape(
+            c["bh"] * 8, c["bw"] * 8)[: c["hgt"], : c["w"]].astype(np.int64)
+        fh, fv = hmax // c["h"], vmax // c["v"]
+        if hmax % c["h"] or vmax % c["v"] or (fh, fv) not in ((1, 1), (2, 1), (2, 2)):
+            raise ValueError(f"unsupported JPEG chroma sampling {hmax}x{vmax} over "
+                             f"{c['h']}x{c['v']}: {path}")
+        if (fh, fv) != (1, 1):
+            if c["w"] <= 2:                # libjpeg repeats samples at such widths
+                plane = np.repeat(np.repeat(plane, fh, axis=1), fv, axis=0)
+            elif fv == 1:
+                plane = _fancy_h2(plane)
+            else:
+                plane = _fancy_h2v2(plane)
+        planes.append(plane[:Y, :X])
+    if len(comps) == 1:
+        return planes[0].astype(np.uint8)
+    if len(comps) != 3:
+        raise ValueError(f"unsupported JPEG ({len(comps)} components): {path}")
+    ids = tuple(c["id"] for c in comps)
+    rgb = not jfif and (adobe == 0 if adobe is not None else ids == (82, 71, 66))
+    if rgb:
+        return np.stack(planes, axis=-1).astype(np.uint8)
+    return _ycc_to_rgb(*planes)
+
+
+def read_image(path: str) -> np.ndarray:
+    """A PNG or a JPEG, told apart by the file's first bytes."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head.startswith(_PNG_SIG):
+        return read_png(path)
+    if head.startswith(b"\xff\xd8"):
+        return read_jpeg(path)
+    raise ValueError(f"neither a PNG nor a JPEG file: {path}")
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """A PNG or JPEG as float32 RGB [H, W, 3] in [0, 1]: gray repeated,
+    alpha dropped (PIL's ``convert("RGB")``)."""
+    a = read_image(path)
+    if a.ndim == 2:
+        a = a[..., None]
+    a = a[..., :3] if a.shape[-1] >= 3 else np.repeat(a[..., :1], 3, axis=-1)
+    return a.astype(np.float32) / 255.0
 
 # ------------------------------------------------------------------ float dumps
 

@@ -4,8 +4,9 @@ root main.py, on the CPU.
 - ``build_parser``: the same option strings, defaults, types and nargs as
   the root main.py's; ``config_from_args`` gives the same Config (every
   field, presets expanded) for a few argument lists.
-- ``load_dataset``: blender scenes load; colmap and dtu raise
-  NotImplementedError (their loaders are not ported).
+- ``load_dataset``: blender, colmap and dtu scenes load, the latter two
+  with the root main.py's arguments (poses and intrinsics equal, images
+  within one count, PIL's 8-bit rounding at downscale 2).
 - A CPU smoke on the blender scene of tests/test_cli_e2e.py, with that
   file's fast flags (3 stage-0 steps and a tiny mesh export), then 2
   stage-1 steps with BRDF and the textured export, then a ``--test`` run:
@@ -21,7 +22,6 @@ import dataclasses
 import os
 
 import numpy as np
-import pytest
 import torch
 
 import main as jmain
@@ -31,6 +31,8 @@ from mirres_restir_nerf_mesh_torch.utils.exr import read_exr
 from mirres_restir_nerf_mesh_torch.utils.image_io import read_png
 
 from test_cli_e2e import blender_dir  # noqa: F401  (the fixture)
+from test_colmap import make_fixture as make_colmap_fixture
+from test_torch_dtu import write_dtu
 from test_torch_helpers import TORCH_THREADS
 
 torch.set_num_threads(TORCH_THREADS)
@@ -71,14 +73,23 @@ def test_parser_matches_root_main():
         assert got == ref
 
 
-def test_load_dataset_formats(blender_dir):  # noqa: F811
+def test_load_dataset_formats(blender_dir, tmp_path):  # noqa: F811
     cfg = tmain.config_from_args([blender_dir, "--scale", "1.0", "--bound", "1"])
     data = tmain.load_dataset(cfg, "val")
     assert data.num_frames == 2 and (data.H, data.W) == (40, 40) and data.images.shape[-1] == 4
-    for fmt in ("colmap", "dtu"):
-        cfg = tmain.config_from_args([blender_dir, "--data_format", fmt])
-        with pytest.raises(NotImplementedError):
-            tmain.load_dataset(cfg, "train")
+    make_colmap_fixture(tmp_path / "colmap")
+    write_dtu(tmp_path / "dtu")
+    for fmt, argv in (("colmap", ["--bound", "2", "--offset", "0.1", "0", "0"]),
+                      ("dtu", ["--bound", "1", "--downscale", "2"])):
+        cfg = tmain.config_from_args([str(tmp_path / fmt), "--data_format", fmt] + argv)
+        got = tmain.load_dataset(cfg, "train")
+        ref = jmain.load_dataset(jmain.config_from_args(
+            [str(tmp_path / fmt), "--data_format", fmt] + argv), "train")
+        assert got.num_frames == ref.num_frames > 0
+        np.testing.assert_allclose(got.poses, ref.poses, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got.intrinsics, ref.intrinsics, rtol=1e-6)
+        # one count of PIL's 8-bit rounding at downscale 2 (plus float32's ulp)
+        np.testing.assert_allclose(got.images, ref.images, rtol=0, atol=1.0001 / 255)
 
 
 def test_cli_stage0_stage1_test(blender_dir, tmp_path):  # noqa: F811

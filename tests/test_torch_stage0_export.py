@@ -112,6 +112,32 @@ def test_export_stage0_mesh_matches_reference(tmp_path):
                 (tmp_path / f"j{cull}" / name).read_bytes()
 
 
+def test_export_stage0_mesh_empty_outer_cascade(tmp_path):
+    """A compact object at bound 2: the outer cascade keeps no face once the
+    inner box's are cut, so there is nothing to cull; mesh_1.ply is written
+    empty and mesh_0 equals the reference's (run with one cascade: with two
+    and culling on, it builds a tracer on the empty mesh and fails)."""
+    from mirres_restir_nerf_mesh_tpu.data.synthetic import make_synthetic_dataset
+
+    def inner(p, xp):
+        r1 = xp.sqrt(((p - xp.asarray([0.2, 0.0, 0.0])) ** 2).sum(-1))
+        r2 = xp.sqrt(((p + xp.asarray([0.3, 0.1, 0.0])) ** 2).sum(-1))
+        return 40.0 * (xp.exp(-12.0 * r1 ** 2) + xp.exp(-20.0 * r2 ** 2))
+
+    data = make_synthetic_dataset(n_frames=4, H=24, W=24, bound=2.0)
+    kw = dict(bound=2.0, resolution=40, env_reso=24, density_thresh=10.0, decimate_target=600,
+              dataset=data, visibility_culling=True)
+    got = tex.export_stage0_mesh(lambda p: t(inner(n(p).astype(np.float64), np).astype(np.float32)),
+                                 str(tmp_path / "t"), cascade=2, device="cpu", **kw)
+    ref = jex.export_stage0_mesh(
+        lambda p: jnp.asarray(inner(np.asarray(p, np.float64), np).astype(np.float32)),
+        str(tmp_path / "j"), cascade=1, **kw)
+    assert len(got) == 2 and got[0][1].shape[0] > 0 and got[1][1].shape[0] == 0
+    np.testing.assert_array_equal(got[0][1], ref[0][1])
+    np.testing.assert_array_equal(got[0][0], ref[0][0])
+    assert (tmp_path / "t" / "mesh_1.ply").exists()
+
+
 def test_clean_components_and_mesh_files_match_reference(tmp_path):
     n_ = 28
     ax = np.linspace(-1, 1, n_, dtype=np.float32)

@@ -42,6 +42,22 @@ from test_torch_helpers import TORCH_THREADS, n, stage0_spec_kwargs, t
 torch.set_num_threads(TORCH_THREADS)
 
 
+@pytest.fixture(autouse=True)
+def pinned_rounding():
+    """Each comparison runs with torch's intra-op thread count set here (it
+    is process-wide, and any module or test a worker ran before may have
+    changed it) and with XLA's persistent compile cache off (an executable
+    from it may have been compiled by another process, on another host's
+    CPU: the cache lives in the working tree), so both sides round the same
+    way in every worker and every run."""
+    threads, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(TORCH_THREADS)
+    jax.config.update("jax_enable_compilation_cache", False)
+    yield
+    jax.config.update("jax_enable_compilation_cache", cache)
+    torch.set_num_threads(threads)
+
+
 def rel_l2(a, b):
     a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
     return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)

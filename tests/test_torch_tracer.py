@@ -136,19 +136,22 @@ def test_cuda_request_without_card_raises():
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imports with `jax`, the
-    JAX package, PIL, cv2 and the root scripts main.py and albedo_eval.py
-    (which import the JAX package) blocked; no import statement names any
-    of them.  (The card machine has no PIL or cv2; the optional `lpips`
-    package stays a guarded import.)"""
+    JAX package, PIL, cv2, scikit-learn, the root scripts main.py and
+    albedo_eval.py (which import the JAX package), depth_tools/ and
+    scripts/ blocked; no import statement names any of them.  (The card
+    machine has no PIL, cv2 or scikit-learn; the optional `lpips` package
+    stays a guarded import.)"""
+    blocked = ("'jax', 'mirres_restir_nerf_mesh_tpu', 'PIL', 'cv2', 'sklearn', 'main', "
+               "'albedo_eval', 'depth_tools', 'scripts', 'dpt_jax', 'extract_depth'")
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'mirres_restir_nerf_mesh_tpu', 'PIL', 'cv2', 'main', 'albedo_eval'):\n"
+        f"for m in ({blocked}):\n"
         "    sys.modules[m] = None\n"
         "import mirres_restir_nerf_mesh_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "for m in ('jax', 'PIL', 'cv2', 'main', 'albedo_eval'):\n"
+        f"for m in ({blocked}):\n"
         "    assert sys.modules.get(m) is None, m\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -157,8 +160,8 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     import re
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|mirres_restir_nerf_mesh_tpu|PIL|cv2|main|albedo_eval)\b",
-                     re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|mirres_restir_nerf_mesh_tpu|PIL|cv2|sklearn|main|"
+                     r"albedo_eval|depth_tools|scripts|dpt_jax|extract_depth)\b", re.M)
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "mirres_restir_nerf_mesh_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
