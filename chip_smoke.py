@@ -2,12 +2,13 @@
 """Drive the PyTorch + CUDA port on one NVIDIA card: the stage-1 forward
 frame and train step, with and without ReSTIR DI, stage 0 (the
 radiance-field train step, occupancy update, eval render and mesh export),
-and the command line a user runs (stage 0, stage 1, test renders,
+the command line a user runs (stage 0, stage 1, test renders,
 albedo_eval) on a blender-format scene and on a COLMAP workspace with
-JPEG frames, sparse and dense depth.
+JPEG frames, sparse and dense depth, and both train steps data-parallel.
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
     python3 chip_smoke.py --k3-route    (the dense route alone; see k3_route)
+    python3 chip_smoke.py --dp          (phase 4j alone)
 
 Phases (any failure exits non-zero):
 
@@ -167,6 +168,39 @@ Phases (any failure exits non-zero):
    finite, uncertain_count 0, K4 3 a step, the tracer's launches of every
    frame; --test, gates: each test frame's artifacts, every EXR finite,
    the tracer's launches.
+4j. Data parallelism (parallel/mesh.py): 2 gloo ranks spawned through
+   ``parallel.mesh.launch``, both on this card (NCCL refuses two ranks on
+   one device), against the one-card step in this process.  Each rank
+   first checks every collective on CUDA tensors (gloo's are staged through
+   pinned host memory).  Each step on the ranks is held to the one-card
+   step that rank 0 takes first from the same state with the same draws:
+   chained runs part (two one-card stage-0 runs from one seed, whose K4
+   atomics sum in another order, part after a few steps, printed below;
+   the ReSTIR step's Monte Carlo picks follow the params),
+   so the steps start from a common state, as
+   tests/test_torch_stage1_restir.py's step 2 does.  (a) bench.py's stage-0
+   point (4f's config) in fp32, 16 steps from one seed: each step's params
+   within tests/test_dp_trainer.py's rtol 2e-4 / atol 2e-5 and its
+   num_points equal, both ranks' params and occupancy grid bit-identical (a
+   gathered checksum), 2 K4 launches a step on each rank (the counters
+   zeroed and read inside each rank), num_points equal to a chained
+   one-card run's in this process at every step (the params after 16
+   chained steps printed beside, and two one-card runs' against each
+   other); then 3 groups of 16 bf16 steps timed at
+   1 and 2 ranks, and the gradient all-reduce timed alone.  (b) bench.py's
+   ReSTIR train step (4d's static) in fp32, 3 steps:
+   uncertain_count 0 on every rank, params after each step within
+   tests/test_dp_stage1.py's rtol 5e-4 / atol 5e-5, the first step's loss
+   within 1e-5 relative,
+   both ranks' state bit-identical, 37 K1 and 3 K4 launches a step on
+   each rank; the bytes gathered and all-reduced a step, a band gather
+   and the gradient all-reduce timed alone.  (c) ``torchrun
+   --nproc_per_node 1 -m mirres_restir_nerf_mesh_torch.main`` (NCCL) on
+   4h's blender scene, -O, 300 iterations: exit 0, rank 0's log says it
+   joined the group, a checkpoint and the metrics written (and whether
+   save_mesh found a surface, printed).
+   Two ranks sharing one card measure correctness and overhead, not
+   scaling.
 5. Reference check: a 64x64, spp-2 frame of the small mesh in fp32 on the
    card against the same frame on the CPU (the plain versions, which the
    CPU tests hold against the JAX package), same weights and randoms.
@@ -2569,6 +2603,447 @@ def colmap_run(dev, counts, out_dir):
         tmp.cleanup()
 
 
+# phase 4j: data parallelism on the card.  Two gloo ranks share the one
+# card (NCCL refuses two ranks on one device): they measure correctness and
+# the DP machinery's overhead, not scaling.
+DP_RANKS = 2
+DP_STAGE0_STEPS = 16                  # the fp32 gate's steps; also the bf16 timing group
+DP_STAGE1_STEPS = 3
+DP_STAGE0_TOL = (2e-4, 2e-5)          # tests/test_dp_trainer.py's rtol / atol
+DP_STAGE1_TOL = (5e-4, 5e-5)          # tests/test_dp_stage1.py's
+DP_LOSS_RTOL = 1e-5                   # the stage-1 first step's loss
+DP_CLI_ITERS = 300                    # (c): a short stage 0 under torchrun
+DP_TIMEOUT_S = 600
+
+
+def make_counters():
+    """The launch counters of every kernel wrapper -> (zero, read)."""
+    from mirres_restir_nerf_mesh_torch.ops import dense_tracer, scatter, tile_tracer
+
+    counters = (tile_tracer.queue_trace, tile_tracer.grid_trace, dense_tracer.dense_hit,
+                dense_tracer.dense_occluded, scatter.scatter_add)
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def read():
+        return {c.__name__: c.launches for c in counters}
+
+    return zero, read
+
+
+def dp_collectives(dp) -> dict:
+    """Each collective of parallel/mesh.py on this rank's CUDA tensors,
+    against values computed here (uneven shards of 7 rows): gather_rows
+    forward and gradient, all_reduce_sum's gradient, replicate,
+    all_reduce_grads (a None gradient as zeros), all_reduce_scalars,
+    all_gather_rows of bools, same_on_all_ranks, barrier."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.parallel import mesh as pmesh
+
+    dev, R = dp.device, dp.world
+    n = 7
+    x = (torch.arange(n * 3, dtype=torch.float32, device=dev).reshape(n, 3) - 9.0) * 0.25
+    w = torch.cos(torch.arange(n * 3, dtype=torch.float32, device=dev)).reshape(n, 3)
+    sh = pmesh.shard_of(n, dp)
+    xl = x[sh.lo:sh.hi].clone().requires_grad_(True)
+    full = pmesh.gather_rows(xl, dp, sh.counts)
+    loss = (full * w).pow(2).sum() + pmesh.all_reduce_sum((xl ** 3).sum(), dp)
+    (g,) = torch.autograd.grad(loss / R, xl)
+    want = (2 * x * w ** 2 + 3 * x ** 2)[sh.lo:sh.hi]
+    rep = pmesh.replicate([torch.full((2,), float(dp.rank), device=dev),
+                           torch.tensor(dp.rank + 1, dtype=torch.int32)], dp)
+    summed = pmesh.all_reduce_grads([None, torch.ones(3, device=dev) * dp.rank],
+                                    [torch.zeros(2, device=dev), torch.zeros(3, device=dev)], dp)
+    sc = pmesh.all_reduce_scalars({"a": dp.rank + 1.0}, dp)
+    bools = pmesh.all_gather_rows((x[sh.lo:sh.hi, 0] > 0), dp, sh.counts)
+    checks = {
+        "gather_rows forward": bool(torch.equal(full.detach(), x)),
+        "gather_rows / all_reduce_sum gradient": bool(torch.allclose(g, want, rtol=1e-5,
+                                                                     atol=1e-5)),
+        "replicate": bool((rep[0] == 0).all()) and int(rep[1]) == 1 and rep[0].device == dev,
+        "all_reduce_grads": bool((summed[0] == 0).all())
+        and bool((summed[1] == sum(range(R))).all()) and summed[1].device == dev,
+        "all_reduce_scalars": float(sc["a"]) == R * (R + 1) / 2,
+        "all_gather_rows (bool)": bool(torch.equal(bools, x[:, 0] > 0)),
+        "same_on_all_ranks": pmesh.same_on_all_ranks([x, rep[0]], dp),
+    }
+    pmesh.barrier(dp)
+    if not all(checks.values()):
+        raise AssertionError(f"rank {dp.rank}: collectives on CUDA tensors: {checks}")
+    return checks
+
+
+def dp_stage0(dp, dev, seed, dtype, groups, counts, hold: bool = False) -> tuple:
+    """bench.py's stage-0 point (4f's config) from seed: init, one occupancy
+    update, then ``groups`` groups of DP_STAGE0_STEPS steps (one sync a
+    group), sharded over dp's ranks (dp None: the one-card step), the
+    counters zeroed before and read after.  ``hold``: before each step rank
+    0 takes the one-card step from the same state with the same draws and
+    each step's params and num_points are held to it (dp_stage1 says why:
+    K4's atomics alone part two one-card runs after a few steps).
+    -> (state, readings)."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.data.provider import RayDataset
+    from mirres_restir_nerf_mesh_torch.data.synthetic import make_synthetic_frames
+    from mirres_restir_nerf_mesh_torch.models.nerf import NeRFSpec
+    from mirres_restir_nerf_mesh_torch.parallel import mesh as pmesh
+    from mirres_restir_nerf_mesh_torch.train import stage0 as s0
+
+    zero_counts, read_counts = counts
+    cfg = stage0_bench_config()
+    sampler = RayDataset(make_synthetic_frames(n_frames=8, H=256, W=256, bound=cfg.bound),
+                         bound=cfg.bound, device=dev)
+    spec = NeRFSpec(bound=cfg.bound, compute_dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = s0.init_state(gen, cfg, spec, device=dev)
+    state = s0.make_occ_update(cfg, spec)(state, gen)
+    step_fn = s0.make_train_step(cfg, spec, sampler, dp=dp)
+    step_one = s0.make_train_step(cfg, spec, sampler) if hold else None
+    torch.cuda.synchronize()
+    zero_counts()
+    pmesh.all_reduce.bytes = pmesh.all_gather_rows.bytes = 0
+    pmesh.all_reduce.seconds = pmesh.all_gather_rows.seconds = 0
+    launches = {}
+    times, num_points, losses, vs_one = [], [], [], []
+    for _ in range(groups):
+        torch.cuda.synchronize()
+        t_group, t0 = 0.0, time.perf_counter()
+        for _ in range(DP_STAGE0_STEPS):
+            if hold:
+                if dp.rank == 0:
+                    g_state = gen.get_state()
+                    one, aux_one = step_one(state, gen)
+                    gen.set_state(g_state)
+                    one = ([x.cpu().numpy() for x in s0.tree_leaves(one.params)],
+                           int(aux_one["num_points"]))
+                pmesh.barrier(dp)
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+            state, aux = step_fn(state, gen)
+            if hold:
+                torch.cuda.synchronize()
+                t_group += time.perf_counter() - t0
+                for k, n in read_counts().items():
+                    launches[k] = launches.get(k, 0) + n
+                if dp.rank == 0:
+                    vs_one.append({**params_within(
+                        [x.cpu().numpy() for x in s0.tree_leaves(state.params)], one[0],
+                        DP_STAGE0_TOL), "num_points_equal": int(aux["num_points"]) == one[1]})
+            num_points.append(aux["num_points"])
+            losses.append(aux["loss"])
+        if not hold:
+            torch.cuda.synchronize()
+            t_group = time.perf_counter() - t0
+        times.append(t_group)
+    if not hold:
+        launches = read_counts()
+    steps = groups * DP_STAGE0_STEPS
+    stage0_finite(state, aux, "dp stage-0 step")
+    return state, {
+        "group_s": times, "step_s": statistics.median(times) / DP_STAGE0_STEPS,
+        "num_points": [int(v) for v in num_points], "loss_first": float(losses[0]),
+        "loss_last": float(losses[-1]), "K4_per_step": launches["scatter_add"] / steps,
+        "launches": launches, "params_vs_one_card": vs_one,
+        "all_reduce_bytes_per_step": pmesh.all_reduce.bytes / steps,
+        "all_gather_bytes_per_step": pmesh.all_gather_rows.bytes / steps,
+        "collective_s_per_step": (pmesh.all_reduce.seconds + pmesh.all_gather_rows.seconds)
+        / steps}
+
+
+def dp_stage1(dp, dev, seed, v, f, counts) -> tuple:
+    """bench.py's ReSTIR train step (4d's static, 256^2, spp 32, the bench
+    mesh, denoise_iters 4) in fp32 from seed: DP_STAGE1_STEPS steps sharded
+    over dp's ranks, each between two syncs, the counters zeroed before and
+    read after each.  Before each, rank 0 takes the one-card step from the
+    same state with the same draws (a copy of the generator's state), so
+    every step is held to the one-card step from a common start: the
+    renderer's Monte Carlo decisions (reservoir picks, the denoiser's
+    weights) follow the params, and an ulp of difference after one step
+    (the gradient summed in another order) moves a pick in a later frame,
+    as tests/test_torch_stage1_restir.py's step 2 starts from the
+    reference's state for the same reason.  -> (state, readings)."""
+    import dataclasses
+
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.parallel import mesh as pmesh
+    from mirres_restir_nerf_mesh_torch.train import stage1 as train1
+    from mirres_restir_nerf_mesh_torch.train.losses import build_topology
+
+    zero_counts, read_counts = counts
+    vb, fb = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    budget = dict(k_cap=640, queue_avg=256, k_cap_incoherent=640, queue_avg_incoherent=64)
+    st_one = frame_static(fb, FRAME_HW, FRAME_HW, FRAME_SPP, torch.float32, **budget, **RESTIR)
+    st = dataclasses.replace(st_one, dp=dp)
+    cfg = train_config(FRAME_SPP, use_restir=True)
+    cam = camera(FRAME_HW, FRAME_HW, dev)
+    params = make_params(v.shape[0], seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    state = train1.init_state(gen, cfg, st, params.nerf, v.shape[0], device=dev)
+    state = state._replace(params=state.params._replace(env=torch.as_tensor(sky_env(),
+                                                                            device=dev)))
+    topo = build_topology(f, v.shape[0])
+    step = train1.make_train_step(cfg, st, vb, topo)
+    step_one = train1.make_train_step(cfg, st_one, vb, topo)
+
+    def leaves(s):
+        return [x for g in train1.GROUPS for x in train1.group_leaves(s.params)[g]]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pmesh.all_reduce.bytes = pmesh.all_gather_rows.bytes = 0
+    pmesh.all_reduce.seconds = pmesh.all_gather_rows.seconds = 0
+    launches = {}
+    times, times_one, losses, losses_one, uncertain, vs_one = [], [], [], [], [], []
+    for _ in range(DP_STAGE1_STEPS):
+        if dp.rank == 0:
+            g_state = gen.get_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one, aux_one = step_one(state, cam, generator=gen)
+            torch.cuda.synchronize()
+            times_one.append(time.perf_counter() - t0)
+            gen.set_state(g_state)
+            losses_one.append(float(aux_one["loss"]))
+            one = [x.cpu().numpy() for x in leaves(one)]
+        pmesh.barrier(dp)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        state, aux = step(state, cam, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        for k, n in read_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        losses.append(float(aux["loss"]))
+        uncertain.append(float(aux["uncertain_count"]))
+        if dp.rank == 0:
+            vs_one.append(params_within([x.cpu().numpy() for x in leaves(state)], one,
+                                        DP_STAGE1_TOL))
+            del one
+    check_state(state, aux)
+    n = DP_STAGE1_STEPS
+    return state, {
+        "step_s": times, "one_card_step_s": times_one, "loss": losses, "loss_one_card": losses_one,
+        "params_vs_one_card": vs_one, "uncertain_count": uncertain,
+        "K1_per_step": launches["queue_trace"] / n, "K4_per_step": launches["scatter_add"] / n,
+        "launches": launches, "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "all_reduce_bytes_per_step": pmesh.all_reduce.bytes / n,
+        "all_gather_bytes_per_step": pmesh.all_gather_rows.bytes / n,
+        "all_reduce_s_per_step": pmesh.all_reduce.seconds / n,
+        "all_gather_s_per_step": pmesh.all_gather_rows.seconds / n}
+
+
+def dp_collective_ms(dp, dev, leaves, band_rows: int) -> dict:
+    """Host ms (synchronized, median of 5) of the gradient all-reduce over
+    ``leaves``' shapes, and of one gather_rows forward + backward of a
+    17-channel band of ``band_rows`` pixels (the denoiser's gather)."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.parallel import mesh as pmesh
+
+    grads = [torch.ones_like(x) for x in leaves]
+    counts = [band_rows] * dp.world
+
+    def reduce():
+        pmesh.all_reduce_grads(grads, leaves, dp)
+
+    def gather():
+        x = torch.ones((band_rows, 17), device=dev, requires_grad=True)
+        torch.autograd.grad(pmesh.gather_rows(x, dp, counts).sum(), x)
+
+    out = {}
+    for name, fn in (("grad_all_reduce_ms", reduce), ("gather_rows_fwd_bwd_ms", gather)):
+        ts = []
+        for _ in range(6):
+            pmesh.barrier(dp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(ts[1:])
+    out["grad_bytes"] = sum(x.numel() * x.element_size() for x in leaves)
+    return out
+
+
+def dp_rank(dp, seed, v, f):
+    """Phase 4j's work on one rank: the collectives, stage 0 (the fp32 gate
+    run, then bf16 timing), the collectives' times, stage 1 (the fp32 gate
+    run) -> readings, rank 0's params after each gate run, and whether
+    every rank holds the same state."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.parallel import mesh as pmesh
+    from mirres_restir_nerf_mesh_torch.train import stage1 as train1
+    from mirres_restir_nerf_mesh_torch.train.stage0 import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = dp.device
+    counts = make_counters()
+    out = {"collectives": dp_collectives(dp)}
+    state, out["stage0_fp32"] = dp_stage0(dp, dev, seed, torch.float32, 1, counts, hold=True)
+    out["stage0_same"] = pmesh.same_on_all_ranks(
+        tree_leaves(state.params) + [state.occ.density_grid, state.occ.occ], dp)
+    out["stage0_params"] = ([x.cpu().numpy() for x in tree_leaves(state.params)]
+                            if dp.rank == 0 else None)
+    out["stage0_collective"] = dp_collective_ms(dp, dev, tree_leaves(state.params), 1)
+    del state
+    torch.cuda.empty_cache()
+    state, out["stage0_bf16"] = dp_stage0(dp, dev, seed, torch.bfloat16, 3, counts)
+    del state
+    torch.cuda.empty_cache()
+    state, out["stage1_fp32"] = dp_stage1(dp, dev, seed, v, f, counts)
+    leaves = [x for g in train1.GROUPS for x in train1.group_leaves(state.params)[g]]
+    out["stage1_same"] = pmesh.same_on_all_ranks(leaves, dp)
+    out["stage1_collective"] = dp_collective_ms(dp, dev, leaves,
+                                                FRAME_HW * FRAME_HW // dp.world)
+    return out
+
+
+def params_within(got, ref, tol) -> dict:
+    """Each leaf within (rtol, atol) of the reference -> the worst leaf's
+    share of entries outside, its largest |difference| and the verdict."""
+    import numpy as np
+
+    rtol, atol = tol
+    worst = {"ok": True, "max_abs_diff": 0.0, "share_outside": 0.0, "leaf": None}
+    for i, (a, b) in enumerate(zip(got, ref)):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        bad = np.abs(a - b) > atol + rtol * np.abs(b)
+        worst["max_abs_diff"] = max(worst["max_abs_diff"], float(np.abs(a - b).max()))
+        if bad.mean() > worst["share_outside"]:
+            worst["share_outside"], worst["leaf"] = float(bad.mean()), i
+        worst["ok"] = worst["ok"] and not bool(bad.any())
+    worst["ok"] = worst["ok"] and len(got) == len(ref)
+    return worst
+
+
+def dp_cli(out_dir) -> dict:
+    """Phase 4j (c): ``torchrun --nproc_per_node 1 -m
+    mirres_restir_nerf_mesh_torch.main`` (NCCL) on 4h's blender scene, a
+    short stage 0 with -O; rank 0 writes the workspace (mesh_0.ply only
+    where the field reached the density threshold: recorded, not gated)."""
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dp_")
+    base = Path(tmp.name)
+    root, ws = base / "scene", base / "ws"
+    try:
+        write_blender_scene(root)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "mirres_restir_nerf_mesh_torch.main", str(root),
+               "--workspace", str(ws), "--bound", "1", "--scale", "1.0", "-O", "--iters",
+               str(DP_CLI_ITERS), "--mcubes_reso", str(CLI_MCUBES_RESO)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_TIMEOUT_S,
+                             cwd=str(Path(__file__).resolve().parent))
+        secs = time.perf_counter() - t0
+        if out_dir is not None:
+            (out_dir / "dp_torchrun.log").write_text(res.stdout + res.stderr)
+        log_path = ws / "log_ngp.txt"
+        text = log_path.read_text() if log_path.exists() else ""
+        got = {"s": secs, "returncode": res.returncode,
+               "joined_nccl": "[dp] data-parallel over 1 ranks (nccl)" in text,
+               "mesh": (ws / "mesh_0.ply").exists(),
+               "checkpoints": len(list((ws / "checkpoints").glob("*.pkl")))
+               if (ws / "checkpoints").exists() else 0,
+               "metrics": (ws / "metrics_ngp.jsonl").exists()}
+    finally:
+        tmp.cleanup()
+    if not (got["returncode"] == 0 and got["joined_nccl"] and got["checkpoints"]
+            and got["metrics"]):
+        raise AssertionError(f"4j (c) torchrun: {got}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return got
+
+
+def dp_run(dev, counts, v, f, seed, out_dir) -> dict:
+    """Phase 4j: (a) stage 0 and (b) stage 1 on DP_RANKS gloo ranks on this
+    card (spawned through parallel.mesh.launch), each step held to the
+    one-card step rank 0 takes from the same state (dp_stage0, dp_stage1);
+    stage 0 also chained at 1 rank (this process) beside 2; (c) the user's
+    command under torchrun (NCCL)."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.parallel import mesh as pmesh
+    from mirres_restir_nerf_mesh_torch.train.stage0 import tree_leaves
+
+    t_start = time.perf_counter()
+    one = {}
+    state, one["stage0_fp32"] = dp_stage0(None, dev, seed, torch.float32, 1, counts)
+    ref0 = [x.cpu().numpy() for x in tree_leaves(state.params)]
+    # the same run again: how far two one-card runs from one seed part
+    state, _ = dp_stage0(None, dev, seed, torch.float32, 1, counts)
+    s0_self = params_within([x.cpu().numpy() for x in tree_leaves(state.params)], ref0,
+                            DP_STAGE0_TOL)
+    del state
+    torch.cuda.empty_cache()
+    state, one["stage0_bf16"] = dp_stage0(None, dev, seed, torch.bfloat16, 3, counts)
+    del state
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_start
+
+    t0 = time.perf_counter()
+    # every rank on this card (an explicit index: cuda alone would mean cuda:rank)
+    rank_dev = torch.device(dev.type, torch.cuda.current_device()) if dev.type == "cuda" else dev
+    ranks = pmesh.launch(dp_rank, DP_RANKS, backend="gloo", device_of_rank=lambda r: rank_dev,
+                         args=(seed, v, f), timeout=DP_TIMEOUT_S)
+    t_ranks = time.perf_counter() - t0
+    r0 = ranks[0]
+    # the chained runs (16 steps each, not gated: two one-card runs part too)
+    s0_chained = params_within(r0["stage0_params"], ref0, DP_STAGE0_TOL)
+    s0_cmp = r0["stage0_fp32"]["params_vs_one_card"]
+    s1 = r0["stage1_fp32"]
+    s1_cmp = s1["params_vs_one_card"]
+    loss_rel = abs(s1["loss"][0] - s1["loss_one_card"][0]) / abs(s1["loss_one_card"][0])
+    t0 = time.perf_counter()
+    cli = dp_cli(out_dir)
+    res = {
+        "ranks": DP_RANKS, "note": "2 gloo ranks share one card: correctness and overhead, "
+                                   "not scaling",
+        "one_rank": one,
+        "per_rank": [{k: v for k, v in r.items() if not k.endswith("_params")} for r in ranks],
+        "stage0_chained_vs_one_rank": s0_chained, "stage0_chained_one_rank_twice": s0_self,
+        "stage1_first_loss_rel": loss_rel, "torchrun": cli,
+        "s_one_rank": t_one, "s_ranks": t_ranks, "s_torchrun": time.perf_counter() - t0}
+    log("dp: " + json.dumps(res))
+    fails = []
+    for k, r in enumerate(ranks):
+        s0r, s1r = r["stage0_fp32"], r["stage1_fp32"]
+        if s0r["num_points"] != one["stage0_fp32"]["num_points"]:
+            fails.append(f"rank {k}: stage-0 num_points differ from one rank's")
+        if s0r["K4_per_step"] != K4_STAGE0_LAUNCHES or r["stage0_bf16"]["K4_per_step"] != \
+                K4_STAGE0_LAUNCHES:
+            fails.append(f"rank {k}: {s0r['K4_per_step']} K4 launches a stage-0 step")
+        if any(u != 0 for u in s1r["uncertain_count"]):
+            fails.append(f"rank {k}: stage-1 uncertain_count {s1r['uncertain_count']}")
+        if s1r["K1_per_step"] != 1 + 2 * 2 + FRAME_SPP or s1r["K4_per_step"] != K4_STEP_LAUNCHES:
+            fails.append(f"rank {k}: {s1r['K1_per_step']} K1 / {s1r['K4_per_step']} K4 "
+                         "launches a stage-1 step")
+        if not (r["stage0_same"] and r["stage1_same"]):
+            fails.append(f"rank {k}: state differs from the other ranks'")
+    if not all(c["ok"] and c["num_points_equal"] for c in s0_cmp):
+        fails.append(f"stage-0 params vs the one-card step: {s0_cmp}")
+    if not all(c["ok"] for c in s1_cmp):
+        fails.append(f"stage-1 params vs the one-card step: {s1_cmp}")
+    if not loss_rel <= DP_LOSS_RTOL:
+        fails.append(f"stage-1 first-step loss: relative difference {loss_rel}")
+    if fails:
+        raise AssertionError("4j: " + "; ".join(fails))
+    res["launches"] = {"dp_stage0_one": one["stage0_fp32"]["launches"],
+                       **{f"dp_stage0_rank{k}": r["stage0_fp32"]["launches"]
+                          for k, r in enumerate(ranks)},
+                       **{f"dp_stage1_rank{k}": r["stage1_fp32"]["launches"]
+                          for k, r in enumerate(ranks)}}
+    return res
+
+
 def check_stage0_reference(seed, dev):
     """Phase 5d: one stage-0 step of a small fp32 field (8 levels of 2^15,
     hidden 32, grid 32, 1024 rays, max_steps 128, 32 samples, compaction to
@@ -2712,6 +3187,9 @@ def main(argv=None) -> int:
     ap.add_argument("--plant-k4-fault", choices=("scale", "drop"), default=None,
                     help="run phases 5b and 5d alone with a fault planted in K4 (updates x "
                          "1.01, or an encode's launch dropped); exit 0 only if 5d fails")
+    ap.add_argument("--dp", action="store_true",
+                    help="run phase 4j (data parallelism) alone after the build and exit (no "
+                         "result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2753,6 +3231,10 @@ def main(argv=None) -> int:
         return 0
     if args.plant_k4_fault:
         return planted_fault_run(args.plant_k4_fault, args.seed, dev)
+    if args.dp:
+        v_big, f_big = bench_mesh(BENCH_FACES)
+        dp_run(dev, make_counters(), v_big, f_big, args.seed, out_dir)
+        return 0
 
     # ---- meshes, cameras, weights
     t0 = time.perf_counter()
@@ -2818,15 +3300,7 @@ def main(argv=None) -> int:
     so, sd, st_max = shadow_rays(vb, fb, cm_big, cam, sky_env(), gen)
     k1_checks.append(check_tile("K1 any, direct shadow", cm_big, so, sd, True, "morton", 640, 64,
                                 t_max=st_max))
-    counters = (tile_tracer.queue_trace, tile_tracer.grid_trace, dense_tracer.dense_hit,
-                dense_tracer.dense_occluded, scatter.scatter_add)
-
-    def zero_counts():
-        for c in counters:
-            c.launches = 0
-
-    def read_counts():
-        return {c.__name__: c.launches for c in counters}
+    zero_counts, read_counts = make_counters()
 
     # the K2 path: the queue=False entry points, one launch on each batch
     k2_checks = [check_grid("K2 closest, primary", cm_big, cam["rays_o"], d_prim, False, False,
@@ -3111,6 +3585,11 @@ def main(argv=None) -> int:
         f"(photo-like); DPT {colmap['dpt']['ms_per_frame fp32 (TF32 off)']:.1f} ms a frame")
 
     phase_done("4i")
+    # ---- 4j. data parallelism: one rank against two on this card; torchrun
+    dp = dp_run(dev, (zero_counts, read_counts), v_big, f_big, args.seed, out_dir)
+    torch.cuda.empty_cache()
+
+    phase_done("4j")
     # ---- 5. reference check: card vs CPU on a small fp32 frame
     Hs = Ws = 64
     cam_s = camera(Hs, Ws, "cpu")
@@ -3165,7 +3644,7 @@ def main(argv=None) -> int:
              "cli_stage0": cli["stage0"]["launches"], "cli_stage1": cli["stage1"]["launches"],
              "cli_test": cli["test"]["launches"], "colmap_stage0": colmap["stage0"]["launches"],
              "colmap_stage1": colmap["stage1"]["launches"],
-             "colmap_test": colmap["test"]["launches"]}
+             "colmap_test": colmap["test"]["launches"], **dp["launches"]}
     # K3's headlines: the primary rays (closest), the direct-shadow batch
     # (any hit: 64 of the lighter small-mesh frame's 66 any-hit launches)
     k3c, k3a = k3_checks[0], k3_checks[3]
@@ -3234,6 +3713,7 @@ def main(argv=None) -> int:
              "reference_check": agree,
              "train_reference_check": agree_train, "restir_reference_check": agree_restir,
              "stage0_step": stage0, "stage0_learning": learn, "cli": cli, "colmap": colmap,
+             "dp": dp,
              "stage0_reference_check": agree_stage0},
             indent=1))
     print(json.dumps({"kernels": kernels}))

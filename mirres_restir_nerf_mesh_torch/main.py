@@ -9,12 +9,23 @@ keeps its name and default.  ``--data_format`` picks the loader: ``nerf``
 (blender-format ``transforms*.json``), ``colmap`` (a COLMAP workspace, as
 ``configs/general_config_for_your_dataset.txt`` runs it) or ``dtu``.  It
 runs on the card; ``main(argv, device="cpu")`` runs on the CPU.
+
+Data parallelism (``--data_parallel``, on by default, as in the JAX
+package): with more than one card visible, ``main`` spawns one NCCL rank
+a card (``parallel.mesh.launch``); under ``torchrun`` it joins the group
+torchrun describes (NCCL on the card, gloo with ``device="cpu"``):
+
+    torchrun --nproc_per_node 4 -m mirres_restir_nerf_mesh_torch.main <scene> --workspace ws -O
+
+A rank that fails makes the run fail; a failed process-group init raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import sys
 
 from .config import Config, finalize
 
@@ -77,12 +88,38 @@ def load_dataset(cfg: Config, split: str):
 
 
 def main(argv=None, device="cuda") -> None:
+    import torch
+
+    from .device import resolve_device
+    from .parallel import mesh as pmesh
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     cfg = config_from_args(argv)
+    if cfg.data_parallel and "WORLD_SIZE" in os.environ:
+        # under torchrun: join its group
+        dp = pmesh.init_data_parallel(device)
+        try:
+            run(cfg, dp.device, dp)
+        finally:
+            torch.distributed.destroy_process_group()
+    elif (cfg.data_parallel and resolve_device(device).type == "cuda"
+          and torch.cuda.device_count() > 1):
+        pmesh.launch(_rank_main, torch.cuda.device_count(), backend="nccl", args=(argv,))
+    else:
+        run(cfg, device)
+
+
+def _rank_main(dp, argv) -> None:
+    run(config_from_args(argv), dp.device, dp)
+
+
+def run(cfg: Config, device="cuda", dp=None) -> None:
+    """Train, test or export as ``cfg`` says (one rank's part under ``dp``)."""
     from .train.trainer import Trainer
 
     split = cfg.train_split if not cfg.test else "test"
     data = load_dataset(cfg, split)
-    trainer = Trainer("ngp", cfg, data, workspace=cfg.workspace, device=device)
+    trainer = Trainer("ngp", cfg, data, workspace=cfg.workspace, device=device, dp=dp)
 
     if cfg.test:
         try:

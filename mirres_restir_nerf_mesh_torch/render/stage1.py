@@ -19,6 +19,18 @@ pixels; the reference's chunked chain exists for XLA's static shapes.
 Randoms: every draw of the frame is one ``FrameRandoms`` (pixel space, row
 per lane), drawn from a ``torch.Generator`` or passed in; the parity tests
 pass the reference's own draws.
+
+Data parallelism (``Stage1Static.dp``, the counterpart of the reference's
+``shard_mesh``): the rays are this rank's band of whole image rows
+(``frame_band``; at ssaa > 1 whole rows of the GT image), the randoms are
+the whole frame's and the rank takes its rows of them.  The tracer sees
+only the band's rays against the replicated mesh; the env sampler and the
+light tiles are built on every rank from the replicated params.  Every
+read across pixels sees the whole frame through ``parallel.mesh.gather_rows``
+(whose gradient returns to the rank that owns the rows): the normal
+smoothness taps, spatial reuse's neighbour records, the denoisers,
+normal-AO and the silhouette antialiasing run on the gathered frame and
+keep the band's rows.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from ..models import envlight
 from ..models import material as material_mod
 from ..models import nerf as nerf_model
 from ..ops.tracer import build_tracer
+from ..parallel import mesh as pmesh
 from ..utils.compact import apply_in_chunks, masked_apply
 from . import pathtracer
 from . import restir as restir_mod
@@ -95,6 +108,7 @@ class Stage1Static:
     compact_chunks: int = 4      # > 1: field, path and ReSTIR passes run on live lanes only
     ssaa: int = 1                # supersampling: H, W are the GT size times ssaa; the
                                  # train step box-downsamples the image buffers
+    dp: Optional[pmesh.DataParallel] = None   # data parallelism: render this rank's band
 
 
 class FrameRandoms(NamedTuple):
@@ -118,6 +132,61 @@ class FrameRandoms(NamedTuple):
 
     def to(self, device) -> "FrameRandoms":
         return FrameRandoms(*(None if x is None else x.to(device) for x in self))
+
+
+def frame_band(static: Stage1Static, gt: bool = False) -> Optional[pmesh.Shard]:
+    """This rank's band of the frame (None without ``static.dp``): whole
+    rows of the GT image, as a shard of the rendered pixels (``gt``: of the
+    GT image's pixels)."""
+    if static.dp is None:
+        return None
+    if static.H <= 0:
+        raise ValueError("data parallelism needs the pixel layout (static.H, static.W)")
+    s = max(static.ssaa, 1)
+    rows = pmesh.shard_of(static.H // s, static.dp)
+    return rows.scaled(static.W // s if gt else static.W * s)
+
+
+def band_randoms(rand: FrameRandoms, spp: int, band: pmesh.Shard) -> FrameRandoms:
+    """The band's rows of the whole frame's randoms (per-spp fields are
+    spp-major: [spp * P] rows, or [spp, P] / [spp, k, P])."""
+    lo, hi, P = band.lo, band.hi, band.n
+
+    def rows(x):
+        return None if x is None else x[lo:hi]
+
+    def per_spp(x):
+        return None if x is None else x.reshape((spp, P) + x.shape[1:])[:, lo:hi].reshape(
+            (spp * (hi - lo),) + x.shape[1:])
+
+    def last(x):
+        return None if x is None else x[..., lo:hi]
+
+    return rand._replace(
+        jitter=rows(rand.jitter), tap=rows(rand.tap),
+        direct=None if rand.direct is None else rand.direct[:, lo:hi],
+        indirect=per_spp(rand.indirect), init_tile=per_spp(rand.init_tile),
+        init_blk=per_spp(rand.init_blk), init_us=per_spp(rand.init_us),
+        init_bu=per_spp(rand.init_bu), temporal_u=last(rand.temporal_u),
+        spatial_start=last(rand.spatial_start), spatial_us=last(rand.spatial_us))
+
+
+def full_frame(band: Optional[pmesh.Shard], *xs: torch.Tensor):
+    """The whole frame of each per-pixel x (its band's rows on this rank):
+    one ``gather_rows`` of them all (bool as float); the inputs unchanged
+    without a band."""
+    if band is None:
+        return list(xs)
+    flat = [x.reshape(x.shape[0], -1) for x in xs]
+    g = pmesh.gather_rows(torch.cat([f.to(torch.float32) for f in flat], dim=1), band.dp,
+                          band.counts)
+    out, c = [], 0
+    for x, f in zip(xs, flat):
+        y = g[:, c:c + f.shape[1]]
+        c += f.shape[1]
+        y = y > 0.5 if x.dtype == torch.bool else y.to(x.dtype)
+        out.append(y.reshape((g.shape[0],) + tuple(x.shape[1:])))
+    return out
 
 
 def draw_frame_randoms(P: int, static: Stage1Static, generator: Optional[torch.Generator],
@@ -167,17 +236,20 @@ def _bilinear_tap(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.
 
 
 def _jittered_tap_grad(tap_n: torch.Tensor, normal: torch.Tensor, mask: torch.Tensor,
-                       H: int, W: int, std_uv: float = 0.005) -> torch.Tensor:
+                       H: int, W: int, std_uv: float = 0.005,
+                       band: Optional[pmesh.Shard] = None) -> torch.Tensor:
     """Normal-smoothness tap: |normal(pixel + N(0, std_uv)*(W,H)) - normal|,
-    weighted by mask * bilinear(mask); tap_n [HW,2] standard normals."""
-    HW = H * W
-    ar = torch.arange(HW, device=normal.device)
+    weighted by mask * bilinear(mask); tap_n [P,2] standard normals; the P
+    pixels are the frame's, or the band's (taps read the whole frame)."""
+    lo = 0 if band is None else band.lo
+    ar = torch.arange(lo, lo + normal.shape[0], device=normal.device)
     off = tap_n * std_uv
     x = (ar % W).to(torch.float32) + off[:, 0] * W
     y = (ar // W).to(torch.float32) + off[:, 1] * H
     mf = mask.to(torch.float32)
-    nrm_tap = _bilinear_tap(normal.reshape(H, W, 3), x, y)
-    mask_tap = _bilinear_tap(mf.reshape(H, W, 1), x, y)[:, 0]
+    nrm_all, mf_all = full_frame(band, normal, mf)
+    nrm_tap = _bilinear_tap(nrm_all.reshape(H, W, 3), x, y)
+    mask_tap = _bilinear_tap(mf_all.reshape(H, W, 1), x, y)[:, 0]
     return torch.sum(torch.abs(nrm_tap - normal), dim=-1) * (mf * mask_tap)
 
 
@@ -190,14 +262,26 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
                   exposure_scale: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One forward frame over the pixel batch (rays_o, rays_d [P,3]); all
     tensors on one device.  rand: the frame's randoms (else drawn from
-    ``generator``)."""
+    ``generator``).  With ``static.dp``: the rays of this rank's band
+    (``frame_band``), rand the whole frame's, the outputs the band's."""
     dev = rays_o.device
     P = rays_o.shape[0]
     SPP = static.spp
     tris = torch.as_tensor(static.tris, device=dev).long()
     verts = base_verts + params.offsets
+    band = frame_band(static)
     if rand is None:
-        rand = draw_frame_randoms(P, static, generator, dev)
+        rand = draw_frame_randoms(P if band is None else band.n, static, generator, dev)
+    if band is not None:
+        if P != band.hi - band.lo:
+            raise ValueError(f"{P} rays for a band of {band.hi - band.lo} pixels")
+        rand = band_randoms(rand, SPP, band)
+
+    def mapply(fn, mask, args, fills):
+        # live-lane compaction on the rule of the whole frame's row count
+        total = mask.shape[0] if band is None else mask.shape[0] // P * band.n
+        return masked_apply(fn, mask, args, fills, chunks=static.compact_chunks,
+                            total_rows=total)
 
     tracer = build_tracer(
         verts.detach(), tris, kind=static.tracer, cluster_size=static.cluster_size,
@@ -220,15 +304,16 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
         return m, m_j, nerf_model.rgb_only(params.nerf, npts, vdir, static.nerf_spec)
 
     with record_function("fields"):
-        mat, mat_j, nerf_rgb = masked_apply(field_queries, gb.mask, (xyzs, xyzs_j, gb.view_dir),
-                                            fills=(0.5, 0.5, 0.0), chunks=static.compact_chunks)
+        mat, mat_j, nerf_rgb = mapply(field_queries, gb.mask, (xyzs, xyzs_j, gb.view_dir),
+                                      fills=(0.5, 0.5, 0.0))
     kd, rough, metal = material_mod.split_material(mat)
     kd_j, rough_j, metal_j = material_mod.split_material(mat_j)
     msk = gb.mask[:, None]
     kd_grad = torch.abs(kd_j - kd) * msk
     ks_grad = torch.sum(torch.abs(torch.stack([rough_j - rough, metal_j - metal], -1)) * msk, dim=-1)
     if static.H > 0:
-        normal_grad = _jittered_tap_grad(rand.tap, gb.normal, gb.mask, static.H, static.W)
+        normal_grad = _jittered_tap_grad(rand.tap, gb.normal, gb.mask, static.H, static.W,
+                                         band=band)
     else:
         normal_grad = torch.sum(torch.abs(gb.normal - gb.face_normal), dim=-1) * gb.mask
     image = torch.where(msk, nerf_rgb, 1.0)
@@ -259,7 +344,8 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
                                   roughness=rough.detach(), metallic=metal.detach(),
                                   mask=gb.mask, depth=gb.depth.detach())
         with record_function("restir_initial"):
-            res0_b = _initial_ris(static, rand, ctx, tile_spp, env_tex.detach(), env_dist)
+            res0_b = _initial_ris(static, rand, ctx, tile_spp, env_tex.detach(), env_dist,
+                                  mapply)
 
     # indirect bounces, batched across all spp (no grad); with ReSTIR the
     # initial winners' visibility rays ride the first NEE launch
@@ -280,8 +366,7 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
         ind_args += (tile_spp(ctx.position + ctx.normal * 1e-4), res0_b.dir,
                      torch.where(res0_b.valid, 1e9, 0.0))
     with record_function("indirect"):
-        outs = masked_apply(indirect_fn, mask_b, ind_args, fills=(0.0, 0.0),
-                            chunks=static.compact_chunks)
+        outs = mapply(indirect_fn, mask_b, ind_args, fills=(0.0, 0.0))
     sum_i = outs[0].reshape(SPP, P, 3).sum(dim=0)
 
     if static.use_restir:
@@ -290,10 +375,10 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
         res_b = res0_b._replace(W=torch.where(init_occ, 0.0, res0_b.W),
                                 valid=res0_b.valid & ~init_occ)
         sum_d, sum_s = _restir_chain(static, rand, ctx, res_b, tracer, env_tex, normal, kd_shade,
-                                     rough, metal)
+                                     rough, metal, band)
     else:
         sum_d, sum_s = _direct_mis(static, rand, gb, xyzs, normal, kd_shade, rough, metal,
-                                   env_tex, env_dist, tracer)
+                                   env_tex, env_dist, tracer, mapply)
     uncertain_count = tracer.pop_telemetry()
     traced_total = tracer.pop_traced()
     inv = 1.0 / float(SPP)
@@ -301,8 +386,18 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
     specular_light = sum_s * inv
     indirect = sum_i * inv
 
+    def own(x):
+        return x if band is None else x[band.lo:band.hi]
+
+    # the whole frame's G-buffer for the image-space passes
+    denoise = static.denoise_iters > 0 and static.H > 0
+    want_ao = static.compute_normal_ao and static.H > 0
+    if denoise or want_ao:
+        nrm_f, pos_f, mask_f, depth_f = full_frame(band, normal.detach(), xyzs.detach(), gb.mask,
+                                                   gb.depth.detach())
+
     # denoise diffuse / specular (differentiable) and indirect (no grad)
-    if static.denoise_iters > 0 and static.H > 0:
+    if denoise:
         from .denoise import bilateral_denoise, eaw_denoise
 
         H, W = static.H, static.W
@@ -310,23 +405,25 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
         def to2d(x):
             return x.reshape(H, W, -1)
 
-        n2, p2, m2 = to2d(normal.detach()), to2d(xyzs.detach()), gb.mask.reshape(H, W)
-        sw = 2 ** (static.denoise_iters - 1)
         with record_function("denoise"):
+            dif_f, spec_f, ind_f = full_frame(band, diffuse_light, specular_light,
+                                              indirect.detach())
+            n2, p2, m2 = to2d(nrm_f), to2d(pos_f), mask_f.reshape(H, W)
+            sw = 2 ** (static.denoise_iters - 1)
             if static.denoise_bilateral:
-                zdz = torch.stack([gb.depth.detach().reshape(H, W),
-                                   torch.full((H, W), 2.0, device=dev)], -1)
-                diffuse_light = bilateral_denoise(to2d(diffuse_light), n2, zdz).reshape(-1, 3)
-                specular_light = bilateral_denoise(to2d(specular_light), n2, zdz).reshape(-1, 3)
-                indirect = bilateral_denoise(to2d(indirect), n2, zdz).detach().reshape(-1, 3)
+                zdz = torch.stack([depth_f.reshape(H, W), torch.full((H, W), 2.0, device=dev)], -1)
+                dif_f = bilateral_denoise(to2d(dif_f), n2, zdz)
+                spec_f = bilateral_denoise(to2d(spec_f), n2, zdz)
+                ind_f = bilateral_denoise(to2d(ind_f), n2, zdz).detach()
             else:
                 eaw = dict(iterations=static.denoise_iters, step_width=sw, c_phi=static.c_phi,
                            n_phi=static.n_phi, p_phi=static.p_phi)
-                diffuse_light = eaw_denoise(to2d(diffuse_light), n2, p2, m2, **eaw).reshape(-1, 3)
-                specular_light = eaw_denoise(to2d(specular_light), n2, p2, m2,
-                                             **eaw).reshape(-1, 3)
-                indirect = eaw_denoise(to2d(indirect), n2, p2, m2, differentiable=False,
-                                       **eaw).reshape(-1, 3)
+                dif_f = eaw_denoise(to2d(dif_f), n2, p2, m2, **eaw)
+                spec_f = eaw_denoise(to2d(spec_f), n2, p2, m2, **eaw)
+                ind_f = eaw_denoise(to2d(ind_f), n2, p2, m2, differentiable=False, **eaw)
+            diffuse_light = own(dif_f.reshape(-1, 3))
+            specular_light = own(spec_f.reshape(-1, 3))
+            indirect = own(ind_f.reshape(-1, 3))
 
     image_brdf = kd_shade * (1.0 - metal[:, None]) * diffuse_light + specular_light + indirect
     image_brdf = torch.where(msk, image_brdf, env_bg)
@@ -337,12 +434,15 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
     if static.antialias and static.H > 0:
         from .antialias import antialias as aa_fn
 
-        bufs = {"image": image, "image_brdf": image_brdf, "diffuse_light": diffuse_light,
-                "specular_light": specular_light, "img_brdf_indirect": indirect.detach()}
+        names = ("image", "image_brdf", "diffuse_light", "specular_light", "img_brdf_indirect")
         with record_function("antialias"):
-            bufs, weights_sum = aa_fn(bufs, gb.mask, (gb.tri_v0, gb.tri_v1, gb.tri_v2), rays_o,
-                                      gb.view_dir, static.H, static.W,
-                                      boost=static.pos_gradient_boost)
+            *vals, m_all, v0, v1, v2, o_all, d_all = full_frame(
+                band, image, image_brdf, diffuse_light, specular_light, indirect.detach(),
+                gb.mask, gb.tri_v0, gb.tri_v1, gb.tri_v2, rays_o, gb.view_dir)
+            bufs, weights_sum = aa_fn(dict(zip(names, vals)), m_all, (v0, v1, v2), o_all, d_all,
+                                      static.H, static.W, boost=static.pos_gradient_boost)
+            bufs = {k: own(v) for k, v in bufs.items()}
+            weights_sum = own(weights_sum)
         image, image_brdf = bufs["image"], bufs["image_brdf"]
         diffuse_light, specular_light = bufs["diffuse_light"], bufs["specular_light"]
         indirect = bufs["img_brdf_indirect"]
@@ -351,8 +451,8 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
     if static.compute_normal_ao and static.H > 0:
         from .denoise import normal_ao
 
-        nrm_ao = normal_ao(normal.detach().reshape(static.H, static.W, 3),
-                           gb.mask.reshape(static.H, static.W)).reshape(-1)
+        nrm_ao = own(normal_ao(nrm_f.reshape(static.H, static.W, 3),
+                               mask_f.reshape(static.H, static.W)).reshape(-1))
 
     return {
         "image": image,
@@ -381,7 +481,7 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
 
 
 def _direct_mis(static, rand, gb, xyzs, normal, kd_shade, rough, metal, env_tex, env_dist,
-                tracer):
+                tracer, mapply):
     """One-sample MIS direct light per spp on live lanes -> (sum_d, sum_s)."""
     P = gb.mask.shape[0]
 
@@ -396,11 +496,11 @@ def _direct_mis(static, rand, gb, xyzs, normal, kd_shade, rough, metal, env_tex,
     sum_s = torch.zeros((P, 3), device=gb.mask.device)
     for s in range(static.spp):
         with record_function("direct"):
-            diff_s, spec_s = masked_apply(
+            diff_s, spec_s = mapply(
                 direct_fn, gb.mask,
                 (xyzs.detach(), normal.detach(), gb.view_dir, gb.mask, kd_shade.detach(),
                  rough.detach(), metal.detach(), normal, kd_shade, rough, metal, rand.direct[s]),
-                fills=(0.0, 0.0), chunks=static.compact_chunks,
+                fills=(0.0, 0.0),
             )
         sum_d = sum_d + diff_s
         sum_s = sum_s + spec_s
@@ -412,7 +512,8 @@ def _direct_mis(static, rand, gb, xyzs, normal, kd_shade, rough, metal, env_tex,
 RIS_LANES = 1 << 18
 
 
-def _initial_ris(static, rand, ctx, tile_spp, env_tex, env_dist) -> "restir_mod.Reservoir":
+def _initial_ris(static, rand, ctx, tile_spp, env_tex, env_dist,
+                 mapply) -> "restir_mod.Reservoir":
     """Light tiles, then initial RIS for all spp at once on live lanes ->
     the [spp*P] reservoirs (visibility not yet applied)."""
     nl, nbs = static.restir_light_samples, static.restir_brdf_samples
@@ -431,21 +532,24 @@ def _initial_ris(static, rand, ctx, tile_spp, env_tex, env_dist) -> "restir_mod.
         return r.dir, r.W[:, None], r.M[:, None], r.valid.to(torch.float32)[:, None], r.p[:, None]
 
     ctx_b = [tile_spp(f) for f in ctx]
-    r_dir, r_w, r_m, r_v, r_p = masked_apply(
+    r_dir, r_w, r_m, r_v, r_p = mapply(
         lambda *a: apply_in_chunks(initial_fn, a, RIS_LANES), ctx_b[6],
         (rand.init_tile[:, None], rand.init_blk[:, None], rand.init_us, rand.init_bu, *ctx_b),
-        fills=(0.0, 0.0, 0.0, 0.0, 0.0), chunks=static.compact_chunks)
+        fills=(0.0, 0.0, 0.0, 0.0, 0.0))
     return restir_mod.Reservoir(dir=r_dir, W=r_w[:, 0], M=r_m[:, 0], valid=r_v[:, 0] > 0.5,
                                 p=r_p[:, 0])
 
 
-def _restir_chain(static, rand, ctx, res_b, tracer, env_tex, normal, kd_shade, rough, metal):
+def _restir_chain(static, rand, ctx, res_b, tracer, env_tex, normal, kd_shade, rough, metal,
+                  band=None):
     """The serial spp chain on live pixels: temporal, spatial, final sample
-    and shading per spp -> full-frame (sum_d, sum_s)."""
+    and shading per spp -> full-frame (or the band's) (sum_d, sum_s).
+    Spatial reuse reads its neighbours' records from the whole frame."""
     P = ctx.mask.shape[0]
     SPP = static.spp
     dev = ctx.mask.device
-    if static.compact_chunks > 1 and P % static.compact_chunks == 0:
+    P_rule = P if band is None else band.n
+    if static.compact_chunks > 1 and P_rule % static.compact_chunks == 0:
         live = torch.nonzero(ctx.mask)[:, 0]
     else:
         live = torch.arange(P, device=dev)
@@ -472,11 +576,12 @@ def _restir_chain(static, rand, ctx, res_b, tracer, env_tex, normal, kd_shade, r
             res, v_self = out if thread_vis else (out, None)
             rec = restir_mod.pack_spatial_record(pctx, res, v_self, env_tex=env_ng)
             packed = torch.zeros((P, rec.shape[1]), device=dev).index_put((live,), rec)
+            packed, = full_frame(band, packed)
         with record_function("restir_spatial"):
             out = restir_mod.spatial_resampling(
                 pctx, res, env_ng, static.H, static.W, offsets, sp_rand, tracer=tracer,
                 n_neighbors=static.restir_neighbors, unbiased=thread_vis, v_self=v_self,
-                packed=packed, pix_idx=live)
+                packed=packed, pix_idx=live if band is None else live + band.lo)
         with record_function("restir_final"):
             if thread_vis:
                 res, final_vis = out

@@ -6,7 +6,12 @@ evaluates the field in chunks of ``field_chunk`` points.  With
 ``compact_points`` M (the train step's point budget), the field runs on the
 first M valid samples in ray order only (the reference's cross-ray
 compaction: a stable valid-first order, truncated in ray order), and the
-results go back to their [N, K] slots; the rest weigh zero.  The three
+results go back to their [N, K] slots; the rest weigh zero.  With a
+``shard`` (data parallelism: these rays are one rank's contiguous rows of
+the batch) the compaction is the whole batch's: each rank's count of valid
+samples is gathered, and rank r keeps its valid samples whose index among
+the batch's valid samples is below M, at the global slots offset_r + j
+(the stochastic encode's uniforms are taken by that slot).  The three
 parts run under the profiler ranges ``march``, ``field`` and ``composite``.
 """
 
@@ -19,6 +24,7 @@ from torch.profiler import record_function
 
 from ..models import nerf as nerf_model
 from ..ops.marching import composite_rays, march_rays, near_far_from_aabb
+from ..parallel.mesh import Shard, all_gather_rows
 from ..utils.compact import apply_in_chunks
 from ..utils.math import safe_normalize
 
@@ -40,12 +46,14 @@ def render_rays(params: Dict[str, Any], occ: torch.Tensor, rays_o: torch.Tensor,
                 cam_near_far: Optional[torch.Tensor] = None,
                 stochastic_u: Optional[torch.Tensor] = None,
                 compact_points: Optional[int] = None, field_chunk: Optional[int] = None,
-                march_candidates: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                march_candidates: Optional[int] = None,
+                shard: Optional[Shard] = None) -> Dict[str, torch.Tensor]:
     """Render N rays -> image [N,3], depth [N], weights_sum [N], and the
     training extras (weights, xyzs, valid, sigmas; normal and sdf in sdf
     mode).  noise: [N] march perturbation uniforms; stochastic_u: [P, 3]
     one-corner encode uniforms for the P = ``field_points`` evaluated
-    points (None: exact encode)."""
+    points (None: exact encode); with ``shard``, P counts the whole
+    batch's points and the rays are the shard's rows."""
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
     if cam_near_far is not None:
         nears = torch.maximum(nears, cam_near_far[:, 0])
@@ -76,6 +84,10 @@ def render_rays(params: Dict[str, Any], occ: torch.Tensor, rays_o: torch.Tensor,
                                        cos_anneal_ratio=cos_anneal_ratio)
         return dres["sigma"], rgbs, nrm, alphas
 
+    n_all = N if shard is None else shard.n
+    compact = compact_points is not None and compact_points < n_all * Kk
+    if shard is not None and stochastic_u is not None and not compact:
+        stochastic_u = stochastic_u[shard.lo * Kk:shard.hi * Kk]
     su = () if stochastic_u is None else (stochastic_u,)
     alpha_mode = spec.sdf
     with record_function("field"):
@@ -84,11 +96,14 @@ def render_rays(params: Dict[str, Any], occ: torch.Tensor, rays_o: torch.Tensor,
             sig_for_comp = alphas.reshape(N, Kk)
             results["normal"] = raw_normal.reshape(N, Kk, 3)
             results["sdf"] = sdf.reshape(N, Kk)
-        elif compact_points is not None and compact_points < N * Kk:
+        elif compact:
             valid_flat = m.valid.reshape(-1)
-            # stable valid-first order; its first M positions are unique, the
-            # valid ones among them the first M valid samples in ray order
-            idx = torch.sort((~valid_flat).to(torch.int8), stable=True).indices[:compact_points]
+            if shard is None:
+                # stable valid-first order; its first M positions are unique,
+                # the valid ones among them the first M valid samples in ray order
+                idx = torch.sort((~valid_flat).to(torch.int8), stable=True).indices[:compact_points]
+            else:
+                idx, su = _global_compaction(valid_flat, compact_points, shard, stochastic_u)
             sig_c, rgb_c = chunked(field, pts[idx], dirs[idx], *su)
             packed = torch.cat([sig_c[:, None].to(torch.float32), rgb_c.to(torch.float32)], dim=1)
             packed = torch.where(valid_flat[idx, None], packed, 0.0)
@@ -108,3 +123,16 @@ def render_rays(params: Dict[str, Any], occ: torch.Tensor, rays_o: torch.Tensor,
                    weights=comp.weights, weights_sum=comp.weights_sum, xyzs=m.xyzs, valid=m.valid,
                    sigmas=sig_for_comp, num_points=m.valid.sum())
     return results
+
+
+def _global_compaction(valid_flat: torch.Tensor, M: int, shard: Shard,
+                       stochastic_u: Optional[torch.Tensor]):
+    """This rank's part of the batch's first M valid samples -> (its local
+    sample indices, in order; the uniforms of their global slots, as a
+    0- or 1-tuple)."""
+    dp = shard.dp
+    counts = all_gather_rows(valid_flat.sum().reshape(1), dp, [1] * dp.world).tolist()
+    off = sum(counts[:dp.rank])
+    keep = max(0, min(counts[dp.rank], M - off))
+    idx = torch.nonzero(valid_flat)[:keep, 0]
+    return idx, (() if stochastic_u is None else (stochastic_u[off:off + keep],))

@@ -61,6 +61,15 @@ def _np_dtype(x: Any) -> np.dtype:
     return np.asarray(x).dtype
 
 
+def replicate_state(state: Any, dp) -> Any:
+    """Rank 0's state on every rank (``parallel.mesh.replicate``): data
+    parallelism replicates the state after init and after a resume."""
+    from ..parallel.mesh import replicate
+
+    leaves = [v for _, v in flatten_with_path(state)]
+    return _replace_leaves(state, iter(replicate(leaves, dp)))
+
+
 def numpy_leaves(state: Any) -> Dict[str, np.ndarray]:
     """{path: numpy leaf} of a state."""
     return {k: _to_numpy(v) for k, v in flatten_with_path(state)}

@@ -75,11 +75,13 @@ def edge_length_loss(verts: torch.Tensor, topo: MeshTopology) -> torch.Tensor:
 
 
 def material_smoothness_grad(kd_grad, ks_grad, nrm_grad, lambda_kd: float, lambda_ks: float,
-                             lambda_nrm: float) -> torch.Tensor:
-    """Jittered-tap material smoothness."""
-    loss = torch.mean(torch.mean(kd_grad[..., 0:3], dim=-1)) * lambda_kd
-    loss = loss + torch.mean(ks_grad) * lambda_ks
-    return loss + torch.mean(nrm_grad) * lambda_nrm
+                             lambda_nrm: float, mean=torch.mean) -> torch.Tensor:
+    """Jittered-tap material smoothness.  ``mean``: the mean over pixels
+    (under data parallelism the whole frame's, ``parallel.mesh.global_mean``),
+    as in the two losses below."""
+    loss = mean(torch.mean(kd_grad[..., 0:3], dim=-1)) * lambda_kd
+    loss = loss + mean(ks_grad) * lambda_ks
+    return loss + mean(nrm_grad) * lambda_nrm
 
 
 def _luma3(x):
@@ -91,7 +93,7 @@ def _value3(x):
 
 
 def shading_loss(diffuse_light, specular_light, color_ref, lambda_diffuse: float,
-                 lambda_specular: float) -> torch.Tensor:
+                 lambda_specular: float, mean=torch.mean) -> torch.Tensor:
     """Monochrome-shading regularizer: log-tonemapped diffuse+specular luma
     towards the reference's value channel, weighted by the diffuse share,
     plus a specular-vs-diffuse energy ratio."""
@@ -101,16 +103,16 @@ def shading_loss(diffuse_light, specular_light, color_ref, lambda_diffuse: float
     img = linear_to_srgb(torch.log(torch.clamp(d_luma + s_luma, 0.0, 65535.0) + 1.0))
     target = linear_to_srgb(torch.log(torch.clamp(ref, 0.0, 65535.0) + 1.0))
     err = torch.abs(img - target) * d_luma / torch.clamp_min(d_luma + s_luma, eps)
-    loss = torch.mean(err) * lambda_diffuse
-    return loss + torch.mean(s_luma) / torch.clamp_min(torch.mean(d_luma), eps) * lambda_specular
+    loss = mean(err) * lambda_diffuse
+    return loss + mean(s_luma) / torch.clamp_min(mean(d_luma), eps) * lambda_specular
 
 
-def chroma_loss(kd, color_ref, lam: float) -> torch.Tensor:
+def chroma_loss(kd, color_ref, lam: float, mean=torch.mean) -> torch.Tensor:
     """Chroma match between albedo and reference."""
     eps = 1e-3
     ref_c = color_ref[..., 0:3] / torch.clamp_min(_value3(color_ref), eps)
     opt_c = kd[..., 0:3] / torch.clamp_min(_value3(kd), eps)
-    return torch.mean(torch.abs(opt_c - ref_c)) * lam
+    return mean(torch.abs(opt_c - ref_c)) * lam
 
 
 def offsets_loss(offsets: torch.Tensor, inner_count: Optional[int] = None) -> torch.Tensor:

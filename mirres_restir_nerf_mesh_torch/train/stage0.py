@@ -11,6 +11,14 @@ march perturbation, the one-corner encode's uniforms) come in as
 ``Stage0Randoms``, drawn from a generator or passed in; those of an
 occupancy update as ``ops.occupancy.OccupancyDraws``.
 
+Data parallelism (``make_train_step(..., dp=...)``): every rank draws the
+whole step's randoms and takes its contiguous rows of the rays
+(``shard_stage0_randoms``); the loss is the one-device loss on every rank
+(its means over the whole batch through ``parallel.mesh.global_mean``, the
+TV term on the batch's first ``TV_POINTS`` points, gathered), each rank
+back-propagates 1/R of it and the gradients are summed over the ranks, so
+Adam and the EMA run on the same numbers everywhere.
+
 Optimizer state: one ``AdamState(count, mu, nu)`` with mu and nu in
 ``tree_leaves`` order (sorted keys: color_net, encoder, sigma_net,
 variance), the order of the reference's ``jax.tree.leaves``.
@@ -18,6 +26,7 @@ variance), the order of the reference's ``jax.tree.leaves``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -29,9 +38,12 @@ from ..models import nerf as nerf_model
 from ..ops.hashgrid import hashgrid_tv_loss
 from ..ops.occupancy import (OccupancyDraws, OccupancyState, draw_occupancy, init_occupancy,
                              update_occupancy)
+from ..parallel.mesh import (DataParallel, Shard, all_gather_rows, all_reduce_grads,
+                             all_reduce_scalars, global_mean, shard_of, shard_rows)
 from ..render.volume import field_points, render_rays
 
 B1, B2 = 0.9, 0.999
+TV_POINTS = 4096             # hashgrid_tv_loss's points: the batch's first marched samples
 
 
 def lr_schedule(cfg: Config):
@@ -166,6 +178,30 @@ def draw_stage0_randoms(sampler, cfg: Config, march_candidates: Optional[int],
     return Stage0Randoms(sample, noise, su)
 
 
+def shard_stage0_randoms(rand: Stage0Randoms, shard: Shard) -> Stage0Randoms:
+    """The shard's rows of the batch's draws and perturbation; the stochastic
+    encode's uniforms stay whole (render_rays takes them by global slot)."""
+    lo, hi = shard.lo, shard.hi
+    s = rand.sample
+    sample = s._replace(**{f: getattr(s, f)[lo:hi] for f in ("img_idx", "pix_idx", "bg",
+                                                             "sparse_m")
+                           if getattr(s, f) is not None})
+    return Stage0Randoms(sample, rand.noise[lo:hi], rand.stochastic_u)
+
+
+def _tv_points(xyzs: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    """The batch's first TV_POINTS marched samples (xyzs [N, K, 3]; with a
+    shard, every rank's part of them gathered)."""
+    pts = xyzs.reshape(-1, 3).detach()
+    if shard is None:
+        return pts
+    K = xyzs.shape[1]
+    counts = [min(max(TV_POINTS - lo * K, 0), (hi - lo) * K)
+              for lo, hi in (shard_rows(shard.n, r, shard.dp.world)
+                             for r in range(shard.dp.world))]
+    return all_gather_rows(pts[:counts[shard.dp.rank]], shard.dp, counts)
+
+
 def init_state(generator: Optional[torch.Generator], cfg: Config, spec: nerf_model.NeRFSpec,
                device="cuda") -> TrainState:
     params = nerf_model.init_nerf(generator, spec, device=device)
@@ -216,8 +252,12 @@ def march_candidates_for(cfg: Config, sampler) -> Optional[int]:
 
 def stage0_loss(params: Any, occ: torch.Tensor, batch: Dict[str, torch.Tensor],
                 rand: Stage0Randoms, cfg: Config, spec: nerf_model.NeRFSpec, step,
-                march_candidates: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """-> (loss, aux); aux holds detached values."""
+                march_candidates: Optional[int] = None,
+                shard: Optional[Shard] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """-> (loss, aux); aux holds detached values.  With ``shard`` the batch
+    and rand are the shard's rows (``shard_stage0_randoms``) and the loss
+    and aux are the whole batch's, equal on every rank."""
+    mean = functools.partial(global_mean, shard=shard)
     s = torch.as_tensor(step, dtype=torch.float32)
     max_level = None
     if cfg.progressive_level:
@@ -231,55 +271,65 @@ def stage0_loss(params: Any, occ: torch.Tensor, batch: Dict[str, torch.Tensor],
         contract=cfg.contract, max_level=max_level, cos_anneal_ratio=cos_anneal,
         cam_near_far=batch.get("cam_near_far"), march_candidates=march_candidates,
         stochastic_u=rand.stochastic_u if cfg.stochastic_interp else None,
-        compact_points=cfg.num_points if cfg.adaptive_num_rays else None)
+        compact_points=cfg.num_points if cfg.adaptive_num_rays else None, shard=shard)
 
     pred, gt = out["image"], batch["pixels"]
-    mse = torch.mean((pred - gt) ** 2)
+    mse = mean((pred - gt) ** 2)
     loss = cfg.lambda_rgb * mse
     if cfg.lambda_mask > 0:
-        loss = loss + cfg.lambda_mask * torch.mean((out["weights_sum"] - batch["alpha"]) ** 2)
+        loss = loss + cfg.lambda_mask * mean((out["weights_sum"] - batch["alpha"]) ** 2)
     if cfg.lambda_entropy > 0:
         def entropy(w):
             w = torch.clamp(w, 1e-5, 1 - 1e-5)
             return -w * torch.log2(w) - (1 - w) * torch.log2(1 - w)
 
-        loss = loss + cfg.lambda_entropy * (torch.mean(entropy(out["weights"]))
-                                            + torch.mean(entropy(out["weights_sum"])))
+        loss = loss + cfg.lambda_entropy * (mean(entropy(out["weights"]))
+                                            + mean(entropy(out["weights_sum"])))
     if cfg.sdf and cfg.lambda_eikonal > 0:
-        loss = loss + cfg.lambda_eikonal * torch.mean(
+        loss = loss + cfg.lambda_eikonal * mean(
             (torch.linalg.norm(out["normal"], dim=-1) - 1.0) ** 2)
     if "depth" in batch and cfg.lambda_depth > 0:
         lam = cfg.lambda_depth * torch.clamp_max(s / 1000.0, 1.0)
         mask = (batch["depth"] > 0).to(torch.float32)
         w = batch.get("depth_weight", 1.0)
-        loss = loss + lam * torch.mean(w * mask * (out["depth"] - batch["depth"]) ** 2)
+        loss = loss + lam * mean(w * mask * (out["depth"] - batch["depth"]) ** 2)
     if cfg.lambda_tv > 0:
-        pts = out["xyzs"].reshape(-1, 3).detach()
-        loss = loss + cfg.lambda_tv * hashgrid_tv_loss(params["encoder"], pts, spec.grid,
-                                                       spec.bound)
+        loss = loss + cfg.lambda_tv * hashgrid_tv_loss(params["encoder"],
+                                                       _tv_points(out["xyzs"], shard), spec.grid,
+                                                       spec.bound, max_points=TV_POINTS)
+    num_points = out["num_points"]
+    if shard is not None:
+        num_points = all_reduce_scalars({"n": num_points}, shard.dp)["n"].to(num_points.dtype)
     aux = {"loss": loss.detach(),
            "psnr": -10.0 * torch.log10(torch.clamp_min(mse.detach(), 1e-12)),
-           "num_points": out["num_points"]}
+           "num_points": num_points}
     return loss, aux
 
 
 def loss_and_grads(params: Any, occ: torch.Tensor, batch: Dict[str, torch.Tensor],
                    rand: Stage0Randoms, cfg: Config, spec: nerf_model.NeRFSpec, step,
-                   march_candidates: Optional[int] = None):
+                   march_candidates: Optional[int] = None, shard: Optional[Shard] = None):
     """-> (loss, aux, grads): stage0_loss and its gradient with respect to
-    every leaf in ``tree_leaves`` order (None: the loss does not use it)."""
+    every leaf in ``tree_leaves`` order (None: the loss does not use it).
+    With ``shard``: this rank's part of the gradient (1/R of the loss
+    back-propagated), to be summed over the ranks (``all_reduce_grads``)."""
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
     loss, aux = stage0_loss(tree_unflatten(params, iter(leaves)), occ, batch, rand, cfg, spec,
-                            step, march_candidates)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                            step, march_candidates, shard)
+    scaled = loss if shard is None else loss / shard.dp.world
+    grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
     return loss.detach(), aux, list(grads)
 
 
-def make_train_step(cfg: Config, spec: nerf_model.NeRFSpec, sampler):
+def make_train_step(cfg: Config, spec: nerf_model.NeRFSpec, sampler,
+                    dp: Optional[DataParallel] = None):
     """-> ``train_step(state, generator=None, rand=None) -> (state, aux)``:
     a batch from ``sampler`` (a RayDataset), the loss and its gradients,
     Adam, the EMA.  The march lattice length is fixed once here
-    (``march_candidates_for``) and kept as ``train_step.march_candidates``."""
+    (``march_candidates_for``) and kept as ``train_step.march_candidates``.
+    With ``dp``, rand is the whole step's (every rank draws the same), the
+    rank renders its rows of it and the gradients are summed over the
+    ranks."""
     opt = make_optimizer(cfg)
     n_march = march_candidates_for(cfg, sampler)
 
@@ -287,9 +337,15 @@ def make_train_step(cfg: Config, spec: nerf_model.NeRFSpec, sampler):
                    rand: Optional[Stage0Randoms] = None) -> Tuple[TrainState, Dict[str, Any]]:
         if rand is None:
             rand = draw_stage0_randoms(sampler, cfg, n_march, generator)
+        shard = None
+        if dp is not None:
+            shard = shard_of(rand.noise.shape[0], dp)
+            rand = shard_stage0_randoms(rand, shard)
         batch = sampler.sample(rand.sample)
         _, aux, grads = loss_and_grads(state.params, state.occ.occ, batch, rand, cfg, spec,
-                                       int(state.step), n_march)
+                                       int(state.step), n_march, shard)
+        if dp is not None:
+            grads = all_reduce_grads(grads, tree_leaves(state.params), dp)
         params, opt_state = opt.step(state.params, grads, state.opt_state)
         with torch.no_grad():
             ema = tree_unflatten(params, iter([0.95 * e + 0.05 * p for e, p in zip(

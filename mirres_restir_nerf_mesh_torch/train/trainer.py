@@ -12,8 +12,17 @@ default "cuda"; tests pass "cpu").  Its randomness comes from one
 methods: ``_stage0_randoms`` (a stage-0 step's draws),
 ``_occupancy_draws`` (an occupancy update's) and ``_frame_randoms`` (a
 stage-1 frame's, in training and eval); a subclass may return other draws.
-With more than one card visible the Trainer still trains on its one
-device: data parallelism is not ported.
+
+Data parallelism (``dp``, a ``parallel.mesh.DataParallel``; ``main.py``
+makes one a rank): every rank builds the same Trainer from the same seed,
+the state is replicated from rank 0 after init and after a resume, and
+each step shards the batch over the ranks (stage 0: the rays, ``num_rays``
+rounded up to a multiple of R; stage 1: bands of image rows).  Every
+decision that changes a static or the loop reads numbers summed over the
+ranks (num_points, uncertain_count, face_err / face_cnt, the eval metric),
+so the ranks take the same path.  Every rank evaluates (its draws keep the
+generators in step); rank 0 alone writes logs, metrics, checkpoints,
+meshes, exports and test renders, while the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from ..models import nerf as nerf_model
 from ..models.material import MaterialSpec, sample_material
 from ..models.nerf import NeRFSpec
 from ..ops.occupancy import OccupancyDraws, draw_occupancy
+from ..parallel import mesh as pmesh
 from ..render.stage1 import FrameRandoms, Stage1Static, draw_frame_randoms, render_stage1
 from ..utils.profiling import MetricsWriter
 from . import checkpoint as ckpt
@@ -45,8 +55,10 @@ from .metrics import ssim as ssim_fn
 class Trainer:
     def __init__(self, name: str, cfg: Config, train_data: FrameData,
                  workspace: Optional[str] = None, nerf_spec: Optional[NeRFSpec] = None,
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 device="cuda", dp: Optional[pmesh.DataParallel] = None):
+        self.dp = dp
+        self.is_main = dp is None or dp.rank == 0
+        self.device = resolve_device(device) if dp is None else dp.device
         self.name = name
         self.cfg = cfg
         self.workspace = workspace or cfg.workspace
@@ -69,10 +81,11 @@ class Trainer:
         # auto-escalation, _escalate_tracer_budget)
         self._uncertain_strikes = 0
 
-        if (cfg.data_parallel and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            self.log(f"[dp] {torch.cuda.device_count()} cards visible; data parallelism is not "
-                     f"ported yet (ROADMAP Queue A item 6): training on {self.device} alone")
+        if dp is not None:
+            R = dp.world
+            if cfg.stage == 0 and cfg.num_rays % R != 0:
+                cfg.num_rays = ((cfg.num_rays + R - 1) // R) * R
+            self.log(f"[dp] data-parallel over {R} ranks ({dp.backend})")
 
         # colmap sparse points give a tighter scene AABB
         pts = getattr(train_data, "pts3d", None)
@@ -85,7 +98,7 @@ class Trainer:
         if cfg.stage == 0:
             self.state = stage0.init_state(self.generator, cfg, self.nerf_spec,
                                            device=self.device)
-            self.train_step = stage0.make_train_step(cfg, self.nerf_spec, self.sampler)
+            self.train_step = stage0.make_train_step(cfg, self.nerf_spec, self.sampler, dp=dp)
             self.occ_update = stage0.make_occ_update(cfg, self.nerf_spec)
             self.render_fn = stage0.make_render_fn(cfg, self.nerf_spec)
             if cfg.mark_untrained:
@@ -102,12 +115,24 @@ class Trainer:
                 self._try_resume(stage=0)
         else:
             self._init_stage1()
+        if dp is not None:
+            self.state = ckpt.replicate_state(self.state, dp)
 
     # ------------------------------------------------------------------ utils
     def log(self, msg: str) -> None:
+        if not self.is_main:
+            return
         print(msg)
         with open(self.log_path, "a") as f:
             f.write(msg + "\n")
+
+    def _on_main(self, fn):
+        """fn() on rank 0 alone (its result there, None elsewhere); every
+        rank waits for it."""
+        out = fn() if self.is_main else None
+        if self.dp is not None:
+            pmesh.barrier(self.dp)
+        return out
 
     def _stage0_randoms(self) -> stage0.Stage0Randoms:
         """The draws of one stage-0 step."""
@@ -163,7 +188,7 @@ class Trainer:
             denoise_iters=4 if cfg.use_restir else 0, denoise_bilateral=cfg.use_bi_de,
             enable_offset_nerf_grad=cfg.enable_offset_nerf_grad,
             compute_normal_ao=cfg.use_brdf and cfg.lambda_extra_kd > 0,
-            ssaa=ssaa, compact_chunks=cfg.compact_chunks)
+            ssaa=ssaa, compact_chunks=cfg.compact_chunks, dp=self.dp)
 
         # stage 1 bootstraps from the stage-0 best (else latest) EMA field
         nerf_params = nerf_model.init_nerf(self.generator, self.nerf_spec, device=self.device)
@@ -204,7 +229,8 @@ class Trainer:
                                      decimate_ratio=cfg.refine_decimate_ratio,
                                      min_edge_len=cfg.refine_size)
         self.log(f"[refine] mesh {self.tris.shape[0]} -> {t2.shape[0]} faces")
-        write_ply(os.path.join(self.workspace, "mesh_0_updated.ply"), v2, t2)
+        if self.is_main:
+            write_ply(os.path.join(self.workspace, "mesh_0_updated.ply"), v2, t2)
 
         self._set_mesh(v2, t2)
         self.static = dataclasses.replace(self.static, tris=self._tris_t)
@@ -286,16 +312,21 @@ class Trainer:
                 rate = (i + 1 - start) / max(time.time() - t0, 1e-9)
                 self.log(f"[train] step {i+1}/{steps} loss={last.get('loss', 0):.5f} "
                          f"psnr={last.get('psnr', 0):.2f} it/s={rate:.2f}")
-                self.metrics_writer.write(i + 1, it_per_s=rate, **last)
+                if self.is_main:
+                    self.metrics_writer.write(i + 1, it_per_s=rate, **last)
             if (i + 1) % save_every == 0 or i == steps - 1:
                 self.save_checkpoint()
             if (i + 1) % eval_every == 0:
                 if valid_data is not None:
                     ev = self.evaluate(valid_data, max_frames=eval_max_frames)
                     metric = ev.get("psnr_brdf", ev.get("psnr", 0.0))
-                    self.metrics_writer.write(i + 1, **{f"val_{k}": v for k, v in ev.items()})
+                    if self.is_main:
+                        self.metrics_writer.write(i + 1, **{f"val_{k}": v for k, v in ev.items()})
                 else:
                     metric = last.get("psnr_brdf", last.get("psnr", 0.0))
+                if self.dp is not None:     # rank 0's reading keys the best checkpoint
+                    metric = float(pmesh.all_reduce_scalars(
+                        {"m": metric if self.is_main else 0.0}, self.dp)["m"])
                 if metric > self.best_metric:
                     self.best_metric = metric
                     self.save_checkpoint(best=True)
@@ -356,7 +387,7 @@ class Trainer:
         if grew:
             self.log(f"[adaptive] num_points {num_points:.0f}/{cfg.num_points} -> "
                      f"num_rays {cfg.num_rays} (rebuilding train step)")
-            self.train_step = stage0.make_train_step(cfg, self.nerf_spec, self.sampler)
+            self.train_step = stage0.make_train_step(cfg, self.nerf_spec, self.sampler, dp=self.dp)
         return grew
 
     def _stage1_batch(self, i: int) -> Dict[str, torch.Tensor]:
@@ -454,7 +485,7 @@ class Trainer:
         if self.cfg.use_hdr:
             exposure = torch.tensor(2.0 ** self.cfg.exposure, device=self.device)
 
-        static = self.static
+        static = dataclasses.replace(self.static, dp=None)    # whole frames on each rank
         if getattr(self, "stage1_rows", 0) > 0:
             # eval renders full frames even when training is row-banded
             static = dataclasses.replace(static, H=sampler.H * ssaa)
@@ -491,7 +522,10 @@ class Trainer:
     def test(self, data: Optional[FrameData] = None, out_dir: Optional[str] = None) -> None:
         """Render the test frames and write rgb / depth / brdf PNGs and the
         kd / ks / normal / diffuse / specular EXRs of each, and the trained
-        envmap's EXR once (the inputs of albedo_eval)."""
+        envmap's EXR once (the inputs of albedo_eval); on rank 0."""
+        self._on_main(lambda: self._test(data, out_dir))
+
+    def _test(self, data: Optional[FrameData], out_dir: Optional[str]) -> None:
         from ..utils.image_io import save_exr, save_png
 
         sampler = (RayDataset(data, bound=self.cfg.bound, device=self.device)
@@ -518,7 +552,10 @@ class Trainer:
     # ----------------------------------------------------------------- export
     def save_mesh(self, resolution: Optional[int] = None,
                   decimate_target: Optional[float] = None):
-        """The stage-0 mesh from the EMA field (mesh_{cascade}.ply)."""
+        """The stage-0 mesh from the EMA field (mesh_{cascade}.ply); on rank 0."""
+        return self._on_main(lambda: self._save_mesh(resolution, decimate_target))
+
+    def _save_mesh(self, resolution: Optional[int], decimate_target: Optional[float]):
         from ..export.stage0_export import export_stage0_mesh
 
         cfg = self.cfg
@@ -537,7 +574,11 @@ class Trainer:
             visibility_culling=cfg.mesh_visibility_culling, env_reso=cfg.env_reso,
             device=self.device)
 
-    def export_stage1(self, texture_size: Optional[int] = None) -> str:
+    def export_stage1(self, texture_size: Optional[int] = None) -> Optional[str]:
+        """The textured mesh (rank 0's path; None on the other ranks)."""
+        return self._on_main(lambda: self._export_stage1(texture_size))
+
+    def _export_stage1(self, texture_size: Optional[int]) -> str:
         from ..export.stage1_export import export_stage1_mesh
 
         params = self.state.params
@@ -551,6 +592,8 @@ class Trainer:
 
     # ------------------------------------------------------------- checkpoints
     def save_checkpoint(self, best: bool = False) -> None:
+        if not self.is_main:
+            return
         extra = {}
         if self.cfg.stage == 1:
             # (possibly escalated) tracer budgets beside the state

@@ -11,18 +11,20 @@ the temporaries of a wide rowwise payload.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
 
 def masked_apply(fn: Callable, mask: torch.Tensor, args: Sequence[torch.Tensor],
-                 fills: Sequence[float], chunks: int = 4):
+                 fills: Sequence[float], chunks: int = 4, total_rows: Optional[int] = None):
     """Apply a rowwise ``fn(*args) -> out or (out1, ...)`` ([P, C_j] outputs)
     to the live rows only.  chunks <= 1 (or P not divisible by chunks, as in
-    the reference) disables compaction: a plain call."""
+    the reference) disables compaction: a plain call.  total_rows: the row
+    count that rule reads (default P; the whole frame's when these rows are
+    one rank's band)."""
     P = mask.shape[0]
-    if chunks <= 1 or P % chunks != 0:
+    if chunks <= 1 or (P if total_rows is None else total_rows) % chunks != 0:
         return fn(*args)
     live = torch.nonzero(mask)[:, 0]
     outs = fn(*(a[live] for a in args))
