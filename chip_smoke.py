@@ -9,6 +9,7 @@ JPEG frames, sparse and dense depth, and both train steps data-parallel.
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
     python3 chip_smoke.py --k3-route    (the dense route alone; see k3_route)
     python3 chip_smoke.py --dp          (phase 4j alone)
+    python3 chip_smoke.py --last-modules    (phases 4h and 4i, then 4k)
 
 Phases (any failure exits non-zero):
 
@@ -201,6 +202,42 @@ Phases (any failure exits non-zero):
    save_mesh found a surface, printed).
    Two ranks sharing one card measure correctness and overhead, not
    scaling.
+4k. The last modules (the counters zeroed before each part's run and read
+   after).  (a) The tracer kinds: on the bench mesh (K1's route) and the
+   small mesh (K3's), the LBVH build timed, then 65,536 primary and 65,536
+   bounce-shaped rays traced by ``lbvh``, ``cluster`` (10 candidates) and
+   ``tile`` (k_cap and queue_avg at the cluster count: a budget that drops
+   nothing; at phase 3's budgets 65,536 scattered bounce rays leave ~35k
+   uncertain on the bench mesh), closest and any hit, t_max 1e9 and per
+   ray: lbvh (exact) against tile (its uncertain_count 0): hit / miss
+   equal on every ray,
+   prims equal off ties (two hits within 1e-6 in t), t within 1e-5
+   relative, occlusion masks equal; the cluster kind's agreement with lbvh
+   printed as a share, and its hits equal to its own CPU run's on 4,096
+   rays; ms a call for each kind; the small mesh's dense passes (tile and
+   cluster) must launch K3.  (b) ``dense_intersect`` on the small mesh at
+   the primary rays: one K3 launch; its rows equal the plain version's bit
+   for bit at the wrapper's split and unsplit; its HitResult equal to the
+   tile tracer's dense route's; event, device and host ms, the bound.  (c)
+   A 64^2 spp-2 fp32 lighter frame of the small mesh with each kind from
+   the same FrameRandoms: finite, image within 1e-5 mean absolute of the
+   tile kind's, K3 launches (tile 3 closest + 6 any, cluster 9 closest,
+   lbvh none).  (d) ``render_dump`` at 128^2 under a 16x32 env: through a
+   Tracer on the bench mesh (K1) and the small mesh (K3), one launch a
+   texel chunk, through ``nerf_visibility_fn`` of 4h's stage-0 field, and
+   with no visibility; card against CPU over 64 of the pixels, the image
+   and the diffuse light within 1e-4 relative on >= 99.9% (the specular
+   light's share printed: its GGX term rounds apart at grazing light).  (e) ``build_distribution`` / ``build_alias_table``
+   card against CPU; ``sample_li`` (exact), ``pdf_li`` and
+   ``sample_li_alias`` at 65,536 draws: directions within 1e-5, pdf within
+   1e-5 relative on >= 99.9%; one ReSTIR initial pass with the
+   EnvDistribution (64^2, visibility through K3): finite, card against CPU
+   within 1e-4 on >= 99.9% of pixels.  (f) The tools: ``downscale`` over
+   4i's JPEG frames (each read back by read_jpeg at half size),
+   ``render_turntable`` 4 frames at stage 0 and stage 1 from 4h's
+   workspace, ``live_viewer`` on a free port in a thread (the page and a
+   /render at stage 0 and stage 1, decoded by read_jpeg, then ``--train``
+   for 50 steps with the step advancing between two renders); s of each.
 5. Reference check: a 64x64, spp-2 frame of the small mesh in fp32 on the
    card against the same frame on the CPU (the plain versions, which the
    CPU tests hold against the JAX package), same weights and randoms.
@@ -236,7 +273,8 @@ Phases (any failure exits non-zero):
    one occupancy update with the same draws: the grid within 1e-4 relative
    and the occupancy mask equal on >= 99.9% of cells.
 6. Print the kernel table as one JSON line (K1, K2, K3 closest hit, K3 any
-   hit, K4, and K4 at the stage-0 encode and TV shapes), the card line, and as the last line {"ok": true, "device":
+   hit, K3 through dense_intersect, K4, and K4 at the stage-0 encode and
+   TV shapes), the card line, and as the last line {"ok": true, "device":
    {...}}.
 """
 
@@ -521,6 +559,21 @@ def check_k3(name, cm, rays_o, rays_d, t_max=None, sort=False):
     plain = (lambda: dt.dense_occluded_plain(tris, ro, rd, tm)) if any_hit else \
         (lambda: dt.dense_hit_plain(tris, ro, rd))
     res["plain_ms"] = cuda_ms(plain, 2, warm=False)
+    res.update(k3_bound(tris, ro, rd, tm, p, any_hit))
+    return res
+
+
+def k3_bound(tris, ro, rd, tm, p, any_hit) -> dict:
+    """The bound of one K3 launch on this run's data (see check_k3): p the
+    plain version's answer (the mask, or the closest hit's rows)."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops import dense_tracer as dt
+
+    N, Mcols = ro.shape[0], tris.shape[1]
+    M = int((tris[9] >= 0).sum())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {}
     live = tm > 1e-4
     if any_hit:
         # the bundles of the live rays left unoccluded, up to their t_max;
@@ -1658,7 +1711,7 @@ class CliHarness:
             setattr(obj, name, orig)
 
 
-def cli_run(dev, counts, out_dir):
+def cli_run(dev, counts, out_dir, keep=None):
     """Phase 4h: ``mirres_restir_nerf_mesh_torch.main.main`` three times on a
     blender-format scene, then albedo_eval; the launch counters zeroed just
     before each run and read just after.
@@ -1678,7 +1731,10 @@ def cli_run(dev, counts, out_dir):
     Trainer with every leaf equal to the card's state.  Test: the artifact
     set of test() for its 2 frames, every EXR finite when read back, the
     tracer's launches, no K4; albedo_eval's PSNR finite (a plumbing check:
-    the ground truth is constant, see CLI_ALBEDO)."""
+    the ground truth is constant, see CLI_ALBEDO).  With ``keep`` (a list)
+    the scene and workspace stay for phase 4k: keep gets {"tmp", "scene",
+    "ws", "field": (the stage-0 EMA params, their NeRFSpec)}, and the
+    caller cleans up."""
     import shutil
     import tempfile
 
@@ -1716,6 +1772,7 @@ def cli_run(dev, counts, out_dir):
     def run(name):
         return harness.run(argv[name], ws, dev)
 
+    kept = None
     try:
         res = {}
         # ---- stage 0
@@ -1836,10 +1893,15 @@ def cli_run(dev, counts, out_dir):
         if out_dir is not None:
             for f in ("log_ngp.txt", "metrics_ngp.jsonl"):
                 shutil.copy(ws / f, Path(out_dir) / f"cli_{f}")
+        if keep is not None:
+            kept = dict(tmp=tmp, scene=root, ws=ws, field=(tr0.state.ema_params, tr0.nerf_spec))
         return res
     finally:
         harness.close()
-        tmp.cleanup()
+        if kept is None:
+            tmp.cleanup()
+        else:
+            keep.append(kept)
 
 
 # phase 4i: the repo's "your dataset" recipe (configs/general_config_for_your_dataset.txt)
@@ -2419,7 +2481,7 @@ def check_dtu(base: Path) -> dict:
     return res
 
 
-def colmap_run(dev, counts, out_dir):
+def colmap_run(dev, counts, out_dir, keep=None):
     """Phase 4i: the repo's "your dataset" recipe on a COLMAP workspace of
     the analytic sphere (write_colmap_scene), the counters zeroed just
     before each run of ``mirres_restir_nerf_mesh_torch.main.main`` and read
@@ -2439,7 +2501,10 @@ def colmap_run(dev, counts, out_dir):
        textures; gates: loss finite, uncertain_count 0, 3 K4 launches a
        step and the tracer's launches of every frame for the mesh's route;
     4. ``--test``: every test frame's artifacts written and every EXR
-       finite, the tracer's launches, no K4."""
+       finite, the tracer's launches, no K4.
+
+    With ``keep`` (a list) the scene stays for phase 4k: keep gets {"tmp",
+    "images"}, and the caller cleans up."""
     import shutil
     import tempfile
 
@@ -2463,7 +2528,7 @@ def colmap_run(dev, counts, out_dir):
             sparse_draws.append(d.use_sparse)
         return d
 
-    harness = None
+    harness, kept = None, None
     try:
         t0 = time.perf_counter()
         truth = write_colmap_scene(root)
@@ -2595,12 +2660,17 @@ def colmap_run(dev, counts, out_dir):
         if out_dir is not None:
             for f in ("log_ngp.txt", "metrics_ngp.jsonl"):
                 shutil.copy(ws / f, Path(out_dir) / f"colmap_{f}")
+        if keep is not None:
+            kept = dict(tmp=tmp, images=root / "images")
         return res
     finally:
         provider.RayDataset.draw = orig_draw
         if harness is not None:
             harness.close()
-        tmp.cleanup()
+        if kept is None:
+            tmp.cleanup()
+        else:
+            keep.append(kept)
 
 
 # phase 4j: data parallelism on the card.  Two gloo ranks share the one
@@ -2800,6 +2870,7 @@ def dp_stage1(dp, dev, seed, v, f, counts) -> tuple:
     pmesh.all_reduce.seconds = pmesh.all_gather_rows.seconds = 0
     launches = {}
     times, times_one, losses, losses_one, uncertain, vs_one = [], [], [], [], [], []
+    one_vs_itself = []
     for _ in range(DP_STAGE1_STEPS):
         if dp.rank == 0:
             g_state = gen.get_state()
@@ -2811,6 +2882,13 @@ def dp_stage1(dp, dev, seed, v, f, counts) -> tuple:
             gen.set_state(g_state)
             losses_one.append(float(aux_one["loss"]))
             one = [x.cpu().numpy() for x in leaves(one)]
+            # the one-card step again from the same state: its own spread (K4's
+            # atomics sum in another order), printed beside the gate
+            again, _ = step_one(state, cam, generator=gen)
+            gen.set_state(g_state)
+            one_vs_itself.append(params_within([x.cpu().numpy() for x in leaves(again)], one,
+                                               DP_STAGE1_TOL))
+            del again
         pmesh.barrier(dp)
         torch.cuda.synchronize()
         zero_counts()
@@ -2830,7 +2908,8 @@ def dp_stage1(dp, dev, seed, v, f, counts) -> tuple:
     n = DP_STAGE1_STEPS
     return state, {
         "step_s": times, "one_card_step_s": times_one, "loss": losses, "loss_one_card": losses_one,
-        "params_vs_one_card": vs_one, "uncertain_count": uncertain,
+        "params_vs_one_card": vs_one, "one_card_vs_itself": one_vs_itself,
+        "uncertain_count": uncertain,
         "K1_per_step": launches["queue_trace"] / n, "K4_per_step": launches["scatter_add"] / n,
         "launches": launches, "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
         "all_reduce_bytes_per_step": pmesh.all_reduce.bytes / n,
@@ -3044,6 +3123,728 @@ def dp_run(dev, counts, v, f, seed, out_dir) -> dict:
     return res
 
 
+# phase 4k: the last modules.  The lbvh and cluster tracer kinds beside the
+# tile kind on both meshes, K3 on a bare mesh (dense_intersect), a frame with
+# each kind, the all-texel dump renderer, the exact and alias env samplers
+# with a ReSTIR pass on the exact one, and the user's downscale, turntable
+# and viewer tools.
+KINDS_RAYS = 65_536
+KINDS_CPU_RAYS = 4096                  # the cluster kind's CPU run
+KINDS_TMAX = (0.05, 1.5)               # the per-ray t_max of the checks that take one
+KINDS_MAX_CANDIDATES = 10
+KINDS_TIE_RTOL = 1e-6                  # two hits this close in t are a tie: either prim is right
+KINDS_T_RTOL = 1e-5
+KINDS_TIMED = 2
+KINDS_FRAME_HW = 64
+KINDS_FRAME_SPP = 2
+KINDS_FRAME_MAE = 1e-5
+# K3 launches of a lighter small-mesh frame at KINDS_FRAME_SPP (closest,
+# any): tile's dense route takes any hits as such, the cluster kind as
+# closest hits, the lbvh none
+KINDS_FRAME_K3 = {"tile": (3, 2 + 2 * KINDS_FRAME_SPP),
+                  "cluster": (3 + 2 + 2 * KINDS_FRAME_SPP, 0), "lbvh": (0, 0)}
+DUMP_HW = 128
+DUMP_TEXEL_CHUNK = 64
+DUMP_CPU_PIXELS = 64                   # the CPU's run covers these pixels of the frame
+DUMP_RTOL = 1e-4
+DUMP_SHARE = 0.999
+# the buffers gated card vs CPU: the image and the diffuse light.  The
+# specular light alone is printed: its GGX term at grazing light rounds
+# apart between the devices' pow / sqrt beyond 1e-4 on a few pixels (1.4e-4
+# on 1 of 128 on the bench mesh, where the image stays within 1.8e-5)
+DUMP_GATED = ("image_brdf", "diffuse_light")
+SAMPLER_DRAWS = 65_536
+SAMPLER_ATOL = 1e-5
+SAMPLER_SHARE = 0.999
+RESTIR_PASS_HW = 64
+RESTIR_PASS_RTOL = 1e-4
+TURNTABLE_FRAMES = 4
+TURNTABLE_HW = 128
+VIEWER_SIZE = 128
+VIEWER_TRAIN_ITERS = 50
+TOOLS_WIDTH_FLAGS = []                 # flags every tool's run appends (4h's widths: none)
+
+
+def dump_env():
+    """The dump's 16x32 env: bench.py's sky + sun, every 4th texel (the sun
+    kept)."""
+    return sky_env()[2::4, 2::4].copy()
+
+
+def kinds_check(name, tracers, ro, rd, any_hit, t_max, incoherent):
+    """One trace of the rays with each tracer kind: lbvh (exact) against the
+    tile kind: hit / miss equal on every ray, the prims equal wherever the
+    two hits are not a tie (t within KINDS_TIE_RTOL), t within KINDS_T_RTOL;
+    any hit: the masks equal; tile's uncertain_count 0.  The cluster kind's
+    agreement with lbvh is a share (exact only within its K candidates).
+    ms: CUDA events around one call, median of KINDS_TIMED after the
+    compared one."""
+    import torch
+
+    out, res = {}, dict(any_hit=any_hit, rays=int(ro.shape[0]),
+                        t_max="per ray" if torch.is_tensor(t_max) else t_max)
+    for kind, tr in tracers.items():
+        def run(tr=tr):
+            if any_hit:
+                return tr.occluded(ro, rd, t_max, incoherent=incoherent)
+            return tr.intersect(ro, rd, t_max=t_max, incoherent=incoherent)
+
+        out[kind] = run()
+        torch.cuda.synchronize()
+        res[f"{kind}_ms"] = cuda_ms(run, KINDS_TIMED, warm=False)
+    unc = float(tracers["tile"].pop_telemetry())
+    for tr in tracers.values():
+        tr.pop_traced()
+    res["tile_uncertain"] = unc
+    if unc != 0:
+        raise AssertionError(f"{name}: tile uncertain_count {unc}")
+    lb, tl, cl = out["lbvh"], out["tile"], out["cluster"]
+    if any_hit:
+        if not torch.equal(lb, tl):
+            raise AssertionError(f"{name}: lbvh and tile masks differ on "
+                                 f"{int((lb != tl).sum())} rays")
+        res.update(occluded_share=float(tl.float().mean()),
+                   cluster_agree=float((cl == lb).float().mean()))
+        return res, out
+    hit_l, hit_t = lb.prim >= 0, tl.prim >= 0
+    if not torch.equal(hit_l, hit_t):
+        raise AssertionError(f"{name}: lbvh and tile hit / miss differ on "
+                             f"{int((hit_l != hit_t).sum())} rays")
+    both = hit_l & hit_t
+    dt = (lb.t - tl.t).abs()
+    ties = both & (lb.prim != tl.prim)
+    off = ties & (dt > KINDS_TIE_RTOL * tl.t)
+    if bool(off.any()):
+        raise AssertionError(f"{name}: lbvh and tile prims differ off a tie on {int(off.sum())} "
+                             f"rays (of {int(ties.sum())} differing), t apart by up to "
+                             f"{float((dt[off] / tl.t[off]).max()):.3g} relative")
+    rel = float((dt[both] / tl.t[both]).max()) if bool(both.any()) else 0.0
+    if rel > KINDS_T_RTOL:
+        raise AssertionError(f"{name}: lbvh t off tile's by {rel:.3g} relative")
+    same_c = (cl.prim == lb.prim) | ((cl.prim < 0) & (lb.prim < 0))
+    res.update(hit_share=float(hit_t.float().mean()), prim_ties=int(ties.sum()),
+               t_max_rel_err=rel, cluster_agree=float(same_c.float().mean()))
+    return res, out
+
+
+def check_tracer_kinds(name, verts, tris, rays, gen):
+    """Phase 4k (a) on one mesh: the LBVH build, then each ray set (name ->
+    (origins, dirs, incoherent)) traced by the three kinds, closest hit and
+    any hit, at t_max 1e9 and per ray; the cluster kind on the card against
+    its own CPU run on the first KINDS_CPU_RAYS rays."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops import bvh as lbvh
+    from mirres_restir_nerf_mesh_torch.ops import tracer as trc
+    from mirres_restir_nerf_mesh_torch.ops.cluster_bvh import build_clusters
+
+    # the tile kind at budgets that drop nothing (every cluster a candidate),
+    # so that it is exact as the lbvh is
+    C = int(build_clusters(verts, tris).prim.shape[0])
+    res = dict(triangles=int(tris.shape[0]), clusters=C,
+               build_bvh_ms=cuda_ms(lambda: lbvh.build_bvh(verts, tris), 3),
+               build_clusters_ms=cuda_ms(lambda: build_clusters(verts, tris), 3), checks={})
+    tracers = {"tile": trc.build_tracer(verts, tris, "tile", k_cap=C, queue_avg=C,
+                                        k_cap_incoherent=C, queue_avg_incoherent=C),
+               "cluster": trc.build_tracer(verts, tris, "cluster",
+                                           max_candidates=KINDS_MAX_CANDIDATES),
+               "lbvh": trc.build_tracer(verts, tris, "lbvh")}
+    cpu_cluster = trc.build_tracer(verts.cpu(), tris.cpu(), "cluster",
+                                   max_candidates=KINDS_MAX_CANDIDATES)
+    n = KINDS_CPU_RAYS
+    for rname, (ro, rd, incoherent) in rays.items():
+        tm = KINDS_TMAX[0] + torch.rand(ro.shape[0], generator=gen, device=ro.device) * (
+            KINDS_TMAX[1] - KINDS_TMAX[0])
+        for any_hit in (False, True):
+            for t_max in (1e9, tm):
+                label = (f"{name}, {rname}, {'any' if any_hit else 'closest'} hit, t_max "
+                         f"{'per ray' if torch.is_tensor(t_max) else t_max}")
+                r, out = kinds_check(label, tracers, ro, rd, any_hit, t_max, incoherent)
+                tm_c = t_max[:n].cpu() if torch.is_tensor(t_max) else t_max
+                if any_hit:
+                    c = cpu_cluster.occluded(ro[:n].cpu(), rd[:n].cpu(), tm_c)
+                    ok = torch.equal(c, out["cluster"][:n].cpu())
+                else:
+                    c = cpu_cluster.intersect(ro[:n].cpu(), rd[:n].cpu(), t_max=tm_c)
+                    k = out["cluster"]
+                    kp, kt = k.prim[:n].cpu(), k.t[:n].cpu()
+                    diff = kp != c.prim
+                    dt = (kt - c.t).abs()
+                    hit = c.prim >= 0
+                    ok = (torch.equal(kp >= 0, hit)
+                          and not bool((dt[diff] > KINDS_TIE_RTOL * c.t[diff]).any())
+                          and not bool((dt[hit] > KINDS_T_RTOL * c.t[hit]).any()))
+                if not ok:
+                    raise AssertionError(f"{label}: the cluster kind on the card differs from "
+                                         "its CPU run")
+                r["cluster_cpu_equal"] = True
+                res["checks"][label] = r
+                log("4k tracer kinds: " + json.dumps({label: r}))
+    return res
+
+
+def check_dense_intersect(verts, tris, cm, ro, rd, counts):
+    """Phase 4k (b): dense_intersect (K3 on the bare mesh) on the primary
+    rays, once with the counters zeroed just before and read just after
+    (its path); then the kernel's rows equal the plain version's bit for
+    bit at the wrapper's split and unsplit; its HitResult against the tile
+    tracer's dense route on the cluster table (t equal bit for bit on every
+    ray, prims on >= PRIM_AGREE, u, v and the normal equal where the prims
+    are); event, device (queued) and host ms, the bound (check_k3's) ->
+    (results, launches of the path)."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops import dense_tracer as dt
+    from mirres_restir_nerf_mesh_torch.ops import tile_tracer as tt
+
+    zero_counts, read_counts = counts
+    torch.cuda.synchronize()
+    zero_counts()
+    hk = dt.dense_intersect(verts, tris, ro, rd)
+    torch.cuda.synchronize()
+    la = read_counts()
+    if la["dense_hit"] != 1 or sum(la.values()) != 1:
+        raise AssertionError(f"dense_intersect on the card: launches {la}, one K3 expected")
+    table = dt.pack_tris_cm(verts, tris)
+    N, Mcols = ro.shape[0], table.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    auto = dt.split_factor(-(-N // dt.THREADS), sms, -(-Mcols // dt.KERNEL_BM))
+    p = dt.dense_hit_plain(table, ro, rd)
+    splits = [auto] + ([1] if auto != 1 else [])
+    for sp in splits:
+        k = dt.dense_hit(table, ro, rd, split=sp)
+        torch.cuda.synchronize()
+        bad = [i for i, (a, b) in enumerate(zip(k, p)) if not same_bits(a, b)]
+        if bad:
+            raise AssertionError(f"dense_intersect (split {sp}): rows {bad} differ from the "
+                                 "plain version's")
+    ht = tt.intersect_tiles_t(cm, ro, rd).hit
+    torch.cuda.synchronize()
+    if not same_bits(hk.t, ht.t):
+        raise AssertionError("dense_intersect: t differs from the tile tracer's dense route")
+    same = hk.prim == ht.prim
+    agree = float(same.float().mean())
+    if agree < PRIM_AGREE:
+        raise AssertionError(f"dense_intersect: prims agree with the dense route on {agree}")
+    for f in ("u", "v", "normal"):
+        if not same_bits(getattr(hk, f)[same], getattr(ht, f)[same]):
+            raise AssertionError(f"dense_intersect: {f} differs from the dense route")
+
+    def run(split=None):
+        return dt.dense_intersect(verts, tris, ro, rd, split=split)
+
+    res = dict(shape=f"{N} rays x {int(tris.shape[0])} triangles ({Mcols} slots), bare mesh",
+               any_hit=False, split=auto, splits_checked=splits, rows_equal=True,
+               max_abs_err=0.0, prim_agree_dense_route=agree,
+               ms=cuda_ms(run, 10), device_ms=queued_ms(run), host_ms=host_ms(run),
+               plain_ms=cuda_ms(lambda: dt.dense_hit_plain(table, ro, rd), 2, warm=False))
+    if auto != 1:
+        res["ms_split_1"] = cuda_ms(lambda: run(1), 10)
+        res["device_ms_split_1"] = queued_ms(lambda: run(1))
+    res.update(k3_bound(table, ro, rd, torch.full((N,), 1e10, device=ro.device), p, False))
+    return res, la
+
+
+def kinds_frames(vs, fs, params_s, dev, seed, counts):
+    """Phase 4k (c): one lighter 64^2 spp-2 fp32 frame of the small mesh with
+    each tracer kind from the same FrameRandoms: finite, image within
+    KINDS_FRAME_MAE mean absolute of the tile kind's frame, K3 launched as
+    KINDS_FRAME_K3 says (the counters zeroed before each frame)."""
+    import dataclasses
+
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.render.stage1 import draw_frame_randoms, render_stage1
+
+    zero_counts, read_counts = counts
+    H = KINDS_FRAME_HW
+    cam_f = camera(H, H, dev)
+    st = frame_static(fs, H, H, KINDS_FRAME_SPP, torch.float32)
+    rnd = draw_frame_randoms(H * H, st, torch.Generator(device=dev).manual_seed(seed + 7), dev)
+    res, outs, launches = {}, {}, {}
+    for kind in ("tile", "cluster", "lbvh"):
+        st_k = dataclasses.replace(st, tracer=kind)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        outs[kind] = render_stage1(params_s, st_k, vs, cam_f["rays_o"], cam_f["rays_d"], rand=rnd)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches[kind] = la = read_counts()
+        check_outputs(outs[kind], H * H)
+        mae = float((outs[kind]["image"] - outs["tile"]["image"]).abs().mean())
+        res[kind] = dict(frame_s=s, image_mae_vs_tile=mae, K3_closest=la["dense_hit"],
+                         K3_any=la["dense_occluded"], launches=la,
+                         uncertain_count=float(outs[kind]["uncertain_count"]))
+        want = KINDS_FRAME_K3[kind]
+        if (la["dense_hit"], la["dense_occluded"]) != want or la["queue_trace"] or \
+                la["grid_trace"]:
+            raise AssertionError(f"4k frame, {kind} kind: launches {la}, K3 {want} expected")
+        if mae > KINDS_FRAME_MAE:
+            raise AssertionError(f"4k frame, {kind} kind: image {mae} off the tile kind's")
+    log("4k frames by kind: " + json.dumps(res))
+    total = {k: sum(la[k] for la in launches.values()) for k in launches["tile"]}
+    return res, total
+
+
+def dump_case(name, gb_in, env, dev, visibility, counts, cpu_visibility=None):
+    """render_dump of a 128^2 G-buffer on the card (timed, the counters zeroed
+    just before and read just after) and on the CPU over DUMP_CPU_PIXELS of
+    its pixels (visibility: the card's Tracer / visibility_fn; cpu_visibility
+    the CPU's): the DUMP_GATED buffers within DUMP_RTOL relative on >=
+    DUMP_SHARE of those pixels, every buffer finite."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops.tracer import Tracer
+    from mirres_restir_nerf_mesh_torch.render.dump import render_dump
+
+    zero_counts, read_counts = counts
+    args = [gb_in[k] for k in ("position", "normal", "view_dir", "mask", "kd", "roughness",
+                               "metallic")]
+    kw = ({"tracer": visibility} if isinstance(visibility, Tracer)
+          else {"visibility_fn": visibility} if visibility is not None else {})
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = render_dump(*args, env, texel_chunk=DUMP_TEXEL_CHUNK, **kw)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    la = read_counts()
+    unc = float(visibility.pop_telemetry()) if "tracer" in kw else 0.0
+    P = args[0].shape[0]
+    idx = torch.randperm(P, generator=torch.Generator().manual_seed(P))[:DUMP_CPU_PIXELS]
+    kw_c = ({"tracer": cpu_visibility} if isinstance(cpu_visibility, Tracer)
+            else {"visibility_fn": cpu_visibility} if cpu_visibility is not None else {})
+    t0 = time.perf_counter()
+    ref = render_dump(*[a.cpu()[idx] for a in args], env.cpu(), texel_chunk=DUMP_TEXEL_CHUNK,
+                      **kw_c)
+    cpu_s = time.perf_counter() - t0
+    shares, rel = {}, {}
+    for k in ("image_brdf", "diffuse_light", "specular_light"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"4k dump {name}: {k} not finite")
+        a, b = out[k].cpu()[idx], ref[k]
+        shares[k] = float(((a - b).abs() <= DUMP_RTOL * b.abs() + 1e-7).all(dim=1).float().mean())
+        rel[k] = float(((a - b).abs() / (b.abs() + 1e-7)).max())
+    res = dict(pixels=P, texels=int(env.shape[0] * env.shape[1]), s=s, cpu_s=cpu_s,
+               cpu_pixels=len(idx), share_within=shares, max_rel_err=rel, uncertain_count=unc,
+               launches=la, lit_mean=float(out["image_brdf"].mean()))
+    log(f"4k dump {name}: " + json.dumps(res))
+    if min(shares[k] for k in DUMP_GATED) < DUMP_SHARE or unc != 0:
+        raise AssertionError(f"4k dump {name}: card vs CPU within {DUMP_RTOL} on {shares} of "
+                             f"pixels, uncertain {unc}")
+    return res
+
+
+def dump_gbuffer(verts, tris, cm, dev, seed):
+    """A 128^2 G-buffer of a mesh (tile tracer) and per-pixel materials from
+    a seed -> render_dump's inputs on the card."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops.tracer import Tracer
+    from mirres_restir_nerf_mesh_torch.render.gbuffer import (prepare_shading_normal,
+                                                              raycast_gbuffer)
+
+    cam_d = camera(DUMP_HW, DUMP_HW, dev)
+    C = int(cm.prim.shape[0])
+    gb = raycast_gbuffer(verts, tris, Tracer(cm, k_cap=C, queue_avg=C), cam_d["rays_o"],
+                         cam_d["rays_d"])
+    P = DUMP_HW * DUMP_HW
+    g = torch.Generator().manual_seed(seed)
+    return dict(position=gb.position.detach(),
+                normal=prepare_shading_normal(gb.view_dir, gb.normal, gb.face_normal).detach(),
+                view_dir=gb.view_dir.detach(), mask=gb.mask,
+                kd=torch.rand((P, 3), generator=g).to(dev),
+                roughness=(0.2 + 0.8 * torch.rand(P, generator=g)).to(dev),
+                metallic=(torch.rand(P, generator=g) * (torch.rand(P, generator=g) < 0.5)).to(dev))
+
+
+def dump_run(meshes, field, dev, seed, counts):
+    """Phase 4k (d): render_dump at 128^2 under a 16x32 env on both meshes
+    through a Tracer (K1 on the bench mesh, K3 on the small mesh; budgets
+    that drop nothing: k_cap and queue_avg at the cluster count), on the
+    small mesh's G-buffer through nerf_visibility_fn of 4h's stage-0 field
+    (its MLPs in fp32 on both devices: bf16 matmuls round apart between
+    them), and with no visibility."""
+    import dataclasses
+
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops.tracer import build_tracer
+    from mirres_restir_nerf_mesh_torch.render.dump import nerf_visibility_fn
+
+    env = torch.as_tensor(dump_env(), device=dev)
+    res, gbs = {}, {}
+    for name, (verts, tris, cm) in meshes.items():
+        gbs[name] = gb = dump_gbuffer(verts, tris, cm, dev, seed)
+        C = int(cm.prim.shape[0])
+        budget = dict(k_cap=C, queue_avg=C)
+        res[f"{name} mesh, tracer"] = dump_case(
+            f"{name} mesh, tracer", gb, env, dev, build_tracer(verts, tris, **budget), counts,
+            build_tracer(verts.cpu(), tris.cpu(), **budget))
+    params, spec = field
+    spec = dataclasses.replace(spec, compute_dtype=torch.float32)
+    res["small mesh, nerf_visibility_fn"] = dump_case(
+        "small mesh, nerf_visibility_fn", gbs["small"], env, dev,
+        nerf_visibility_fn(params, spec), counts,
+        nerf_visibility_fn({k: tree_to(v, "cpu") for k, v in params.items()}, spec))
+    res["small mesh, no visibility"] = dump_case("small mesh, no visibility", gbs["small"], env,
+                                                 dev, None, counts)
+    chunks = -(-env.shape[0] * env.shape[1] // DUMP_TEXEL_CHUNK)
+    want = {"bench mesh, tracer": "queue_trace", "small mesh, tracer": "dense_occluded"}
+    for k, kern in want.items():
+        la = res[k]["launches"]
+        if la[kern] != chunks or sum(la.values()) != chunks:
+            raise AssertionError(f"4k dump {k}: launches {la}, {chunks} {kern} expected")
+    for k in ("small mesh, nerf_visibility_fn", "small mesh, no visibility"):
+        if sum(res[k]["launches"].values()):
+            raise AssertionError(f"4k dump {k}: launched {res[k]['launches']}")
+    total = {k: sum(r["launches"][k] for r in res.values()) for k in res[next(iter(res))]
+             ["launches"]}
+    return res, total
+
+
+def sampler_run(vs, fs, cm_small, dev, seed, counts):
+    """Phase 4k (e): build_distribution and build_alias_table of bench.py's
+    env on the card and the CPU (the distribution within 1e-5 relative /
+    1e-6 absolute, the alias table equal), sample_li (exact), pdf_li and
+    sample_li_alias at SAMPLER_DRAWS draws through the CPU's tables on both
+    devices: directions within SAMPLER_ATOL on every draw, pdf within 1e-5
+    relative on >= SAMPLER_SHARE; then one ReSTIR initial pass with the
+    EnvDistribution on a 64^2 G-buffer of the small mesh (visibility
+    through K3), card vs CPU: finite, validity equal and W, the direction
+    within RESTIR_PASS_RTOL on >= SAMPLER_SHARE of pixels."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.models import envlight as el
+    from mirres_restir_nerf_mesh_torch.ops.tracer import Tracer
+    from mirres_restir_nerf_mesh_torch.render import restir as rs
+    from mirres_restir_nerf_mesh_torch.render.gbuffer import (prepare_shading_normal,
+                                                              raycast_gbuffer)
+
+    zero_counts, read_counts = counts
+    env_c = torch.as_tensor(sky_env())
+    env = env_c.to(dev)
+    res = dict(build_distribution_ms=cuda_ms(lambda: el.build_distribution(env), 5))
+    t0 = time.perf_counter()
+    alias = el.build_alias_table(env)
+    res["build_alias_table_s"] = time.perf_counter() - t0
+    dist, dist_c, alias_c = el.build_distribution(env), el.build_distribution(env_c), \
+        el.build_alias_table(env_c)
+    for f in ("pdf2d", "mpdf"):
+        torch.testing.assert_close(getattr(dist, f).cpu(), getattr(dist_c, f), rtol=1e-5, atol=0)
+    for f in ("row_cdf", "mcdf"):
+        torch.testing.assert_close(getattr(dist, f).cpu(), getattr(dist_c, f), rtol=0, atol=1e-6)
+    if not all(torch.equal(getattr(alias, f).cpu(), getattr(alias_c, f)) for f in alias._fields):
+        raise AssertionError("alias table: card and CPU differ")
+    g = torch.Generator().manual_seed(seed + 11)
+    u = torch.rand((SAMPLER_DRAWS, 2), generator=g)
+    dist_cd = el.EnvDistribution(*(x.to(dev) for x in dist_c))
+    draws = {"sample_li (exact)": (lambda e, t, uu: el.sample_li(e, t, uu), dist_cd, dist_c),
+             "sample_li_alias": (el.sample_li_alias, alias, alias_c)}
+    for name, (fn, tab, tab_c) in draws.items():
+        d_k, le_k, pdf_k = fn(env, tab, u.to(dev))
+        d_c, le_c, pdf_c = fn(env_c, tab_c, u)
+        err_d = float((d_k.cpu() - d_c).abs().max())
+        rel = (pdf_k.cpu() - pdf_c).abs() / pdf_c.abs().clamp_min(1e-30)
+        share = float((rel <= 1e-5).float().mean())
+        res[name] = dict(dir_max_abs_err=err_d, pdf_share_within_1e_5=share,
+                         pdf_max_rel_err=float(rel.max()),
+                         ms=cuda_ms(lambda: fn(env, tab, u.to(dev)), 5))
+        if err_d > SAMPLER_ATOL or share < SAMPLER_SHARE or not bool(torch.isfinite(le_k).all()):
+            raise AssertionError(f"4k {name}: card vs CPU {res[name]}")
+    d_c = el.sample_li(env_c, dist_c, u)[0]
+    p_k, p_c = el.pdf_li(dist_cd, d_c.to(dev)).cpu(), el.pdf_li(dist_c, d_c)
+    rel = (p_k - p_c).abs() / p_c.abs().clamp_min(1e-30)
+    res["pdf_li"] = dict(share_within_1e_5=float((rel <= 1e-5).float().mean()),
+                         max_rel_err=float(rel.max()))
+    if res["pdf_li"]["share_within_1e_5"] < SAMPLER_SHARE:
+        raise AssertionError(f"4k pdf_li: card vs CPU {res['pdf_li']}")
+    own = el.sample_li(env, dist, u.to(dev))[0].cpu()
+    res["sample_li_own_tables_dir_max_abs_err"] = float((own - el.sample_li(
+        env_c, dist_c, u)[0]).abs().max())
+
+    # the ReSTIR initial pass on an EnvDistribution
+    H = RESTIR_PASS_HW
+    P = H * H
+    cam_c = camera(H, H, "cpu")
+    vc, fc = vs.cpu(), fs.cpu()
+    from mirres_restir_nerf_mesh_torch.ops.cluster_bvh import build_clusters
+
+    gb = raycast_gbuffer(vc, fc, Tracer(build_clusters(vc, fc)), cam_c["rays_o"], cam_c["rays_d"])
+    ctx_c = rs.PixelCtx(position=gb.position, normal=prepare_shading_normal(
+        gb.view_dir, gb.normal, gb.face_normal), view_dir=gb.view_dir,
+        kd=torch.rand((P, 3), generator=g), roughness=0.2 + 0.8 * torch.rand(P, generator=g),
+        metallic=torch.rand(P, generator=g) * (torch.rand(P, generator=g) < 0.5),
+        mask=gb.mask, depth=gb.depth)
+    st = RESTIR
+    T, S, nl, nb = (st["restir_tiles"], st["restir_tile_size"], st["restir_light_samples"],
+                    st["restir_brdf_samples"])
+    u_t = torch.rand((T, S, 2), generator=g)
+    rand = rs.InitialRandoms(
+        tile_id=torch.randint(0, T, (P,), generator=g),
+        blk=torch.randint(0, S // nl, (P,), generator=g), us=torch.rand((1 + nb, P), generator=g),
+        brdf_us=[(torch.rand(P, generator=g), torch.rand((P, 2), generator=g),
+                  torch.rand((P, 2), generator=g)) for _ in range(nb)])
+
+    def to(x):
+        return type(x)(*[tree_to(v, dev) if v is not None else None for v in x])
+
+    tiles_c = rs.generate_light_tiles(env_c, dist_c, T, S, u_t)
+    ref = rs.initial_resampling(ctx_c, tiles_c, env_c, dist_c, Tracer(build_clusters(vc, fc)),
+                                nl, nb, True, rand)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiles = rs.generate_light_tiles(env, dist_cd, T, S, u_t.to(dev))
+    got = rs.initial_resampling(to(ctx_c), tiles, env, dist_cd, Tracer(cm_small), nl, nb, True,
+                                to(rand))
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    la = read_counts()
+    if got.p is not None or not all(bool(torch.isfinite(x).all()) for x in (got.W, got.dir)):
+        raise AssertionError("4k ReSTIR pass on an EnvDistribution: p cached or not finite")
+    valid_eq = got.valid.cpu() == ref.valid
+    d_ok = (got.dir.cpu() - ref.dir).abs().amax(1) <= RESTIR_PASS_RTOL
+    w_ok = (got.W.cpu() - ref.W).abs() <= RESTIR_PASS_RTOL * ref.W.abs() + 1e-7
+    share = float((valid_eq & d_ok & w_ok).float().mean())
+    res["restir_initial"] = dict(pixels=P, s=s, valid_share=float(ref.valid.float().mean()),
+                                 share_within=share, launches=la)
+    log("4k samplers: " + json.dumps(res))
+    if share < SAMPLER_SHARE or la["dense_occluded"] != 1:
+        raise AssertionError(f"4k ReSTIR pass on an EnvDistribution: {res['restir_initial']}")
+    return res, la
+
+
+def serve_viewer(argv, dev):
+    """live_viewer.main(argv) in a daemon thread -> (thread, port) once it
+    listens."""
+    import threading
+
+    from mirres_restir_nerf_mesh_torch.tools import live_viewer
+
+    live_viewer._SERVER_FOR_TEST = None
+    th = threading.Thread(target=live_viewer.main, args=(argv,), kwargs={"device": dev},
+                          daemon=True)
+    th.start()
+    deadline = time.time() + 300
+    while live_viewer._SERVER_FOR_TEST is None:
+        if not th.is_alive() or time.time() > deadline:
+            raise AssertionError(f"live_viewer {argv}: no server")
+        time.sleep(0.05)
+    return th, live_viewer._SERVER_FOR_TEST.server_address[1]
+
+
+def stop_viewer(th):
+    from mirres_restir_nerf_mesh_torch.tools import live_viewer
+
+    live_viewer._SERVER_FOR_TEST.shutdown()
+    th.join(timeout=60)
+    if th.is_alive():
+        raise AssertionError("live_viewer did not stop")
+
+
+def fetch_jpeg(port, path, dst: Path, hw):
+    """GET path from the viewer, decode the JPEG with read_jpeg -> s."""
+    import urllib.request
+
+    from mirres_restir_nerf_mesh_torch.utils.image_io import read_jpeg
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=600) as r:
+        dst.write_bytes(r.read())
+    s = time.perf_counter() - t0
+    img = read_jpeg(str(dst))
+    if img.shape != (hw, hw, 3):
+        raise AssertionError(f"live_viewer {path}: decoded {img.shape}")
+    return s
+
+
+def tools_run(cli_kept, colmap_kept, dev, counts):
+    """Phase 4k (f): downscale 4i's JPEG frames by 2 (each read back by
+    read_jpeg at half size); render_turntable, TURNTABLE_FRAMES frames at
+    stage 0 and at stage 1 from 4h's workspace (finite PNGs, the stage-1
+    frames' tracer launches); live_viewer on a free port in a thread: the
+    page and one /render at stage 0 and at stage 1 from 4h's workspace,
+    each decoded by read_jpeg, then --train on the synthetic scene for
+    VIEWER_TRAIN_ITERS steps, where the Trainer's step must advance between
+    two renders."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.tools import downscale, live_viewer, render_turntable
+    from mirres_restir_nerf_mesh_torch.utils.image_io import read_jpeg, read_png
+
+    zero_counts, read_counts = counts
+    res = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tools_")
+    base = Path(tmp.name)
+    try:
+        images = colmap_kept["images"]
+        t0 = time.perf_counter()
+        downscale.main([str(images), "--scale", "2", "--out", str(base / "half")])
+        files = sorted(images.glob("*.jpg"))
+        for f in files:
+            full, half = read_jpeg(str(f)), read_jpeg(str(base / "half" / f.name))
+            if half.shape != (full.shape[0] // 2, full.shape[1] // 2, 3):
+                raise AssertionError(f"downscale {f.name}: {half.shape} from {full.shape}")
+        res["downscale"] = dict(files=len(files), s=time.perf_counter() - t0)
+
+        ws, scene = cli_kept["ws"], cli_kept["scene"]
+        hw = str(TURNTABLE_HW)
+        extra = {0: ["--bound", "1", "--scale", "1.0", *TOOLS_WIDTH_FLAGS],
+                 1: ["--bound", "1", "--scale", "1.0", "--use_brdf", "--use_restir",
+                     "--eval_spp", "0", *TOOLS_WIDTH_FLAGS]}
+        for stage in (0, 1):
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            render_turntable.main([str(scene), "--workspace", str(ws), "--stage", str(stage),
+                                   "--frames", str(TURNTABLE_FRAMES), "--H", hw, "--W", hw,
+                                   "--extra", *extra[stage]], device=dev)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            la = read_counts()
+            frames = [read_png(str(ws / "turntable" / f"frame_{i:04d}.png"))
+                      for i in range(TURNTABLE_FRAMES)]
+            ok = all(f.shape == (TURNTABLE_HW, TURNTABLE_HW, 3) and f.std() > 0 for f in frames)
+            res[f"turntable_stage{stage}"] = dict(frames=len(frames), s=s, launches=la)
+            traced = la["queue_trace"] + la["dense_hit"] + la["dense_occluded"]
+            if not ok or (stage == 1 and traced == 0) or (stage == 0 and traced):
+                raise AssertionError(f"render_turntable stage {stage}: frames ok {ok}, "
+                                     f"launches {la}")
+
+        views = {0: TOOLS_WIDTH_FLAGS, 1: ["--use_brdf", "--use_restir", "--spp", "2",
+                                          *TOOLS_WIDTH_FLAGS]}
+        for stage in (0, 1):
+            t0 = time.perf_counter()
+            th, port = serve_viewer(["--workspace", str(ws), "--stage", str(stage), "--size",
+                                     str(VIEWER_SIZE), "--port", "0", *views[stage]], dev)
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=60) as r:
+                    if b"live viewer" not in r.read():
+                        raise AssertionError("live_viewer: no page")
+                render_s = fetch_jpeg(port, "/render?theta=1.1&phi=0.4&radius=2.2",
+                                      base / f"view{stage}.jpg", VIEWER_SIZE)
+            finally:
+                stop_viewer(th)
+            res[f"viewer_stage{stage}"] = dict(s=time.perf_counter() - t0, render_s=render_s)
+
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        th, port = serve_viewer(["--workspace", str(base / "ws_train"), "--stage", "0", "--train",
+                                 "--iters", str(VIEWER_TRAIN_ITERS), "--size", str(VIEWER_SIZE),
+                                 "--port", "0", *TOOLS_WIDTH_FLAGS], dev)
+        try:
+            tr = live_viewer._TRAINER_FOR_TEST
+            fetch_jpeg(port, "/render?theta=1.0&phi=0.2&radius=2.5", base / "train0.jpg",
+                       VIEWER_SIZE)
+            step_first = tr.global_step
+            deadline = time.time() + 600
+            while tr.global_step < VIEWER_TRAIN_ITERS and time.time() < deadline:
+                time.sleep(0.1)
+            fetch_jpeg(port, "/render?theta=1.0&phi=0.2&radius=2.5", base / "train1.jpg",
+                       VIEWER_SIZE)
+            step_last = tr.global_step
+        finally:
+            stop_viewer(th)
+        torch.cuda.synchronize()
+        la = read_counts()
+        res["viewer_train"] = dict(s=time.perf_counter() - t0, step_first_render=step_first,
+                                   step_second_render=step_last, launches=la)
+        if not step_first < step_last == VIEWER_TRAIN_ITERS:
+            raise AssertionError(f"live_viewer --train: steps {step_first} -> {step_last}")
+        if la["scatter_add"] < K4_STAGE0_LAUNCHES * VIEWER_TRAIN_ITERS:
+            raise AssertionError(f"live_viewer --train: launches {la}")
+    finally:
+        tmp.cleanup()
+    log("4k tools: " + json.dumps(res))
+    total = {k: sum(r.get("launches", {}).get(k, 0) for r in res.values()) for k in
+             read_counts()}
+    return res, total
+
+
+def last_modules_alone(dev, seed, out_dir) -> None:
+    """``--last-modules``: 4h and 4i for their workspaces, then 4k."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops.cluster_bvh import build_clusters
+
+    counts = make_counters()
+    meshes = {}
+    for name, faces in (("bench", BENCH_FACES), ("small", SMALL_FACES)):
+        v, f = bench_mesh(faces)
+        v, f = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+        meshes[name] = (v, f, build_clusters(v, f))
+    cli_keep, colmap_keep = [], []
+    try:
+        cli_run(dev, counts, out_dir, keep=cli_keep)
+        colmap_run(dev, counts, out_dir, keep=colmap_keep)
+        t0 = time.perf_counter()
+        res = last_modules_run(dev, counts, meshes, camera(FRAME_HW, FRAME_HW, dev),
+                               make_params(meshes["small"][0].shape[0], seed, dev),
+                               cli_keep[0], colmap_keep[0], seed)
+        log(f"phase 4k: {time.perf_counter() - t0:.1f} s")
+        log("4k launches: " + json.dumps(res["launches"]))
+        if out_dir is not None:
+            (out_dir / "last_modules.json").write_text(json.dumps(res, indent=1))
+    finally:
+        for k in cli_keep + colmap_keep:
+            k["tmp"].cleanup()
+
+
+def last_modules_run(dev, counts, meshes, cam, params_s, cli_kept, colmap_kept, seed):
+    """Phase 4k: (a) the tracer kinds on both meshes; (b) dense_intersect;
+    (c) a frame with each kind; (d) render_dump; (e) the samplers and a
+    ReSTIR pass on the exact one; (f) the tools.  The counters are zeroed
+    before each part's run and read after -> (results, launches by part)."""
+    import torch
+
+    zero_counts, read_counts = counts
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    res, paths = {}, {}
+    d_prim = (cam["rays_d"] / cam["rays_d"].norm(dim=-1, keepdim=True)).contiguous()
+    ro_prim = cam["rays_o"].contiguous()
+    t0 = time.perf_counter()
+    for name in ("bench", "small"):
+        verts, tris, _ = meshes[name]
+        bo, bd = bounce_rays(verts, tris, KINDS_RAYS, gen)
+        rays = {"primary": (ro_prim, d_prim, False), "bounce": (bo, bd, True)}
+        zero_counts()
+        res[f"kinds_{name}"] = check_tracer_kinds(f"{name} mesh", verts, tris, rays, gen)
+        paths[f"4k_kinds_{name}"] = read_counts()
+    la_s = paths["4k_kinds_small"]
+    if la_s["dense_hit"] == 0 or la_s["queue_trace"] or paths["4k_kinds_bench"]["dense_hit"]:
+        raise AssertionError(f"4k tracer kinds: launches {paths}: the small mesh's dense pass "
+                             "(tile and cluster kinds) must run K3, the bench mesh K1")
+    res["kinds_s"] = time.perf_counter() - t0
+
+    vs, fs, cm_small = meshes["small"]
+    di, paths["4k_dense_intersect"] = check_dense_intersect(vs, fs, cm_small, ro_prim, d_prim,
+                                                            counts)
+    res["dense_intersect"] = di
+    log("4k dense_intersect: " + json.dumps(di))
+
+    t0 = time.perf_counter()
+    res["frames"], paths["4k_frames"] = kinds_frames(vs, fs, params_s, dev, seed, counts)
+    res["frames_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["dump"], paths["4k_dump"] = dump_run(meshes, cli_kept["field"], dev, seed, counts)
+    res["dump_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["samplers"], paths["4k_samplers"] = sampler_run(vs, fs, cm_small, dev, seed, counts)
+    res["samplers_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["tools"], paths["4k_tools"] = tools_run(cli_kept, colmap_kept, dev, counts)
+    res["tools_s"] = time.perf_counter() - t0
+    res["launches"] = paths
+    return res
+
+
 def check_stage0_reference(seed, dev):
     """Phase 5d: one stage-0 step of a small fp32 field (8 levels of 2^15,
     hidden 32, grid 32, 1024 rays, max_steps 128, 32 samples, compaction to
@@ -3190,6 +3991,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dp", action="store_true",
                     help="run phase 4j (data parallelism) alone after the build and exit (no "
                          "result line)")
+    ap.add_argument("--last-modules", action="store_true",
+                    help="run phases 4h and 4i (whose workspaces 4k uses), then 4k alone after "
+                         "the build, and exit (no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3234,6 +4038,9 @@ def main(argv=None) -> int:
     if args.dp:
         v_big, f_big = bench_mesh(BENCH_FACES)
         dp_run(dev, make_counters(), v_big, f_big, args.seed, out_dir)
+        return 0
+    if args.last_modules:
+        last_modules_alone(dev, args.seed, out_dir)
         return 0
 
     # ---- meshes, cameras, weights
@@ -3563,7 +4370,8 @@ def main(argv=None) -> int:
 
     phase_done("4g")
     # ---- 4h. the CLI as a user runs it: stage 0, stage 1, test, albedo_eval
-    cli = cli_run(dev, (zero_counts, read_counts), out_dir)
+    cli_keep, colmap_keep = [], []
+    cli = cli_run(dev, (zero_counts, read_counts), out_dir, keep=cli_keep)
     torch.cuda.empty_cache()
     log(f"stage-0 it/s: {cli['stage0']['it_per_s']:.2f} under the Trainer (4h: -O, "
         f"{cli['stage0']['num_rays_last']} rays at the end, an occupancy update every 16 "
@@ -3574,7 +4382,7 @@ def main(argv=None) -> int:
 
     phase_done("4h")
     # ---- 4i. the "your dataset" recipe: a COLMAP workspace through the CLI
-    colmap = colmap_run(dev, (zero_counts, read_counts), out_dir)
+    colmap = colmap_run(dev, (zero_counts, read_counts), out_dir, keep=colmap_keep)
     torch.cuda.empty_cache()
     log(f"colmap: stage 0 {colmap['stage0']['it_per_s']:.2f} it/s under the Trainer, val PSNR "
         f"{colmap['stage0']['val_psnr']:.2f}, sparse-depth branch in "
@@ -3590,6 +4398,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     phase_done("4j")
+    # ---- 4k. the last modules: tracer kinds, dense_intersect, a frame with
+    # each kind, render_dump, the exact and alias samplers, the tools
+    try:
+        last = last_modules_run(dev, (zero_counts, read_counts),
+                                {"bench": (vb, fb, cm_big), "small": (vs, fs, cm_small)}, cam,
+                                params_s, cli_keep[0], colmap_keep[0], args.seed)
+    finally:
+        for k in cli_keep + colmap_keep:
+            k["tmp"].cleanup()
+        del cli_keep, colmap_keep
+    torch.cuda.empty_cache()
+
+    phase_done("4k")
     # ---- 5. reference check: card vs CPU on a small fp32 frame
     Hs = Ws = 64
     cam_s = camera(Hs, Ws, "cpu")
@@ -3644,10 +4465,11 @@ def main(argv=None) -> int:
              "cli_stage0": cli["stage0"]["launches"], "cli_stage1": cli["stage1"]["launches"],
              "cli_test": cli["test"]["launches"], "colmap_stage0": colmap["stage0"]["launches"],
              "colmap_stage1": colmap["stage1"]["launches"],
-             "colmap_test": colmap["test"]["launches"], **dp["launches"]}
+             "colmap_test": colmap["test"]["launches"], **dp["launches"], **last["launches"]}
     # K3's headlines: the primary rays (closest), the direct-shadow batch
     # (any hit: 64 of the lighter small-mesh frame's 66 any-hit launches)
     k3c, k3a = k3_checks[0], k3_checks[3]
+    di = last["dense_intersect"]
     k3_closest = [c for c in k3_checks if not c["any_hit"]]
     k3_any = [c for c in k3_checks if c["any_hit"]]
 
@@ -3686,6 +4508,14 @@ def main(argv=None) -> int:
              ms=k3a["ms"], device_ms=k3a["device_ms"], split=k3a["split"],
              plain_ms=k3a["plain_ms"], bound_ms=k3a["bound_ms"], bound_by=k3a["bound_by"],
              issue_floor_ms=k3a["issue_floor_ms"], library_ms=None, checks=k3_any),
+        dict(name="dense_hit (K3, closest hit) on a bare mesh: dense_intersect", route="cuda",
+             source="mirres_restir_nerf_mesh_torch/csrc/dense_hit.cu",
+             replaces="mirres_restir_nerf_mesh_tpu/ops/pallas_tracer.py:40",
+             launches=paths["4k_dense_intersect"]["dense_hit"],
+             launches_by_path={"4k_dense_intersect": paths["4k_dense_intersect"]["dense_hit"]},
+             max_abs_err=0.0, ms=di["ms"], device_ms=di["device_ms"], split=di["split"],
+             plain_ms=di["plain_ms"], bound_ms=di["bound_ms"], bound_by=di["bound_by"],
+             issue_floor_ms=di["issue_floor_ms"], library_ms=None, checks=[di]),
         dict(name="scatter_add (K4)", route="cuda",
              source="mirres_restir_nerf_mesh_torch/csrc/scatter_add.cu",
              replaces="mirres_restir_nerf_mesh_tpu/ops/pallas_scatter.py:37",
@@ -3713,7 +4543,7 @@ def main(argv=None) -> int:
              "reference_check": agree,
              "train_reference_check": agree_train, "restir_reference_check": agree_restir,
              "stage0_step": stage0, "stage0_learning": learn, "cli": cli, "colmap": colmap,
-             "dp": dp,
+             "dp": dp, "last_modules": last,
              "stage0_reference_check": agree_stage0},
             indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -18,6 +18,11 @@ the port's ``train.stage1.Stage1State`` with each group's Adam ``count``,
 reference's stage-0 ``TrainState``: the NeRF params (with ``variance`` in
 sdf mode), the ``scale_by_adam`` count / mu / nu inside its optax chain,
 the EMA params, the ``OccupancyState`` and the step.
+
+``bvh_from_jax``, ``env_distribution_from_jax`` and ``alias_table_from_jax``
+carry the reference's LBVH, exact env distribution and alias table over
+(fields by name, integers as int64), so the port's traversal and samplers
+can run on the reference's own structures.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.envlight import AliasTable, EnvDistribution
+from .ops.bvh import BVH
 from .ops.occupancy import OccupancyState
 from .render.stage1 import Stage1Params
 from .train import stage0
@@ -127,3 +134,28 @@ def stage0_state_to_numpy(state: stage0.TrainState):
             "ema_params": _to_numpy(state.ema_params),
             "occ": {k: _to_numpy(v) for k, v in state.occ._asdict().items()},
             "step": int(state.step)}
+
+
+def _fields_from_jax(cls, src, dev):
+    """A NamedTuple of the port from the same-named fields of the reference's:
+    floats as float32, integers as int64."""
+    def conv(x):
+        a = np.asarray(x)
+        return torch.tensor(a.astype(np.int64 if a.dtype.kind in "iu" else np.float32), device=dev)
+
+    return cls(**{f: conv(getattr(src, f)) for f in cls._fields})
+
+
+def bvh_from_jax(jbvh, device="cuda") -> BVH:
+    """The reference's ``ops/bvh.py`` BVH -> the port's, on the device."""
+    return _fields_from_jax(BVH, jbvh, resolve_device(device))
+
+
+def env_distribution_from_jax(jdist, device="cuda") -> EnvDistribution:
+    """The reference's ``EnvDistribution`` -> the port's, on the device."""
+    return _fields_from_jax(EnvDistribution, jdist, resolve_device(device))
+
+
+def alias_table_from_jax(jtable, device="cuda") -> AliasTable:
+    """The reference's ``AliasTable`` -> the port's, on the device."""
+    return _fields_from_jax(AliasTable, jtable, resolve_device(device))

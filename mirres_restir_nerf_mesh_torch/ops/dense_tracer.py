@@ -12,6 +12,9 @@ padded [16, Mpad] of ``pack_tris_cm``.  Closest hit: first minimal
 triangle index, ``t > t_min``, ``prim >= 0``, no t_max (the caller applies
 it); a miss leaves t = 1e30 and index -1.  Any hit: some triangle with
 ``t_min < t < t_max``.
+
+``dense_intersect`` runs the closest hit on a bare (verts, tris) mesh and
+returns a ``HitResult`` (counterpart of ``pallas_intersect``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ import functools
 from typing import List, Optional, Tuple
 
 import torch
+
+from ..utils.math import cross
+from .bvh import HitResult
 
 BM = 512      # triangle padding granularity of the [16, M] table
 BIG = 1e30
@@ -356,3 +362,25 @@ def dense_occluded(tris: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tenso
 
 
 dense_occluded.launches = 0
+
+
+def dense_intersect(verts: torch.Tensor, tris: torch.Tensor, rays_o: torch.Tensor,
+                    rays_d: torch.Tensor, t_min: float = 1e-4, t_max=1e10,
+                    split: Optional[int] = None) -> HitResult:
+    """Closest hit of every ray against every triangle of a bare mesh: K3
+    (``dense_hit``) on the card, its plain version on the CPU.  A miss is
+    best_t >= min(BIG / 2, t_max) or no index; the normal and the prim id
+    come from one row gather of the packed table."""
+    cm = pack_tris_cm(verts, tris)
+    best_t, best_lin, u, v = dense_hit(cm, rays_o, rays_d, t_min=t_min, split=split)
+    t_max_arr = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                                   device=best_t.device), best_t.shape)
+    miss = (best_t >= torch.clamp_max(t_max_arr, BIG * 0.5)) | (best_lin < 0)
+    rows = cm.T[torch.clamp(best_lin, 0, cm.shape[1] - 1)]
+    return HitResult(
+        t=torch.where(miss, torch.inf, best_t),
+        prim=torch.where(miss, -1, rows[:, 9].to(torch.int64)),
+        u=u,
+        v=v,
+        normal=torch.where(miss[:, None], 0.0, cross(rows[:, 3:6], rows[:, 6:9])),
+    )

@@ -167,12 +167,14 @@ class LightTiles(NamedTuple):
     pdf: torch.Tensor    # [T, S]
 
 
-def generate_light_tiles(env_tex: torch.Tensor, dist: envlight.EnvSampler, n_tiles: int,
+def generate_light_tiles(env_tex: torch.Tensor, dist, n_tiles: int,
                          tile_size: int, u: torch.Tensor) -> LightTiles:
     """Presampled envmap samples from uniforms u [n_tiles, tile_size, 2].
-    Tile Le is the sampled texel's own (nearest) value: it only enters
-    resampling targets."""
-    dirs, le, pdf = envlight.sample_li(env_tex, dist, u.reshape(-1, 2), nearest_le=True)
+    With an ``EnvSampler`` tile Le is the sampled texel's own (nearest)
+    value, since it only enters resampling targets; an
+    ``EnvDistribution``'s tiles carry the bilinear Le."""
+    dirs, le, pdf = envlight.sample_li(env_tex, dist, u.reshape(-1, 2),
+                                       nearest_le=isinstance(dist, envlight.EnvSampler))
     return LightTiles(dirs=dirs.reshape(n_tiles, tile_size, 3),
                       le=le.reshape(n_tiles, tile_size, 3), pdf=pdf.reshape(n_tiles, tile_size))
 
@@ -192,7 +194,7 @@ class InitialRandoms(NamedTuple):
 
 
 def initial_resampling(ctx: PixelCtx, tiles: LightTiles, env_tex: torch.Tensor,
-                       dist: envlight.EnvSampler, tracer: Optional[Tracer],
+                       dist, tracer: Optional[Tracer],
                        n_light_samples: int, n_brdf_samples: int, check_visibility: bool,
                        rand: InitialRandoms) -> Reservoir:
     """RIS over light-tile + BRDF candidates.  The packed fast path (taken
@@ -295,10 +297,13 @@ def initial_resampling(ctx: PixelCtx, tiles: LightTiles, env_tex: torch.Tensor,
     W = torch.where(sel_valid & (sel_p > 0),
                     (w_sum / torch.clamp_min(M, 1.0)) / torch.clamp_min(sel_p, 1e-12), 0.0)
     W = torch.where(torch.isfinite(W), W, 0.0)
-    # tiles and BRDF candidates both carry nearest-texel Le, so sel_p is the
-    # target temporal and spatial reuse would re-evaluate: cache it
+    # with an EnvSampler the tiles and BRDF candidates both carry
+    # nearest-texel Le, so sel_p is the target temporal and spatial reuse
+    # would re-evaluate: cache it.  An EnvDistribution's tiles carry
+    # bilinear Le, so the later passes re-evaluate (p None).
+    p_out = sel_p if isinstance(dist, envlight.EnvSampler) else None
     return Reservoir(dir=sel_dir, W=W, M=torch.ones((P,), device=dev), valid=sel_valid & (W > 0),
-                     p=sel_p)
+                     p=p_out)
 
 
 def _valid_neighbor(ctx: PixelCtx, n_normal, n_depth, normal_thresh: float = 0.5,

@@ -94,8 +94,9 @@ class Stage1Static:
     n_phi: float = 0.1
     p_phi: float = 0.1
 
-    tracer: str = "auto"         # 'auto' = 'tile'
+    tracer: str = "auto"         # 'tile' ('auto'), 'cluster' or 'lbvh'
     cluster_size: int = 128
+    max_candidates: int = 10     # cluster kind: cluster boxes tested a ray
     dense_threshold: int = 8192  # <=: single dense pass over all triangles
     k_cap: int = 128             # candidate clusters per ray tile
     k_cap_incoherent: int = 512  # same for bounce / shadow batches
@@ -285,8 +286,8 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
 
     tracer = build_tracer(
         verts.detach(), tris, kind=static.tracer, cluster_size=static.cluster_size,
-        dense_threshold=static.dense_threshold, k_cap=static.k_cap,
-        k_cap_incoherent=static.k_cap_incoherent, tile=static.ray_tile,
+        max_candidates=static.max_candidates, dense_threshold=static.dense_threshold,
+        k_cap=static.k_cap, k_cap_incoherent=static.k_cap_incoherent, tile=static.ray_tile,
         queue_avg=static.queue_avg, queue_avg_incoherent=static.queue_avg_incoherent,
     )
     with record_function("gbuffer"):

@@ -13,6 +13,12 @@ on numpy and the standard library alone: no PIL, no cv2.
   upsampling, its fixed-point colour conversion), so its pixels equal what
   PIL reads through libjpeg-turbo.  Progressive, arithmetic-coded,
   lossless, 12-bit and CMYK files raise ``ValueError``.
+- ``write_jpeg`` / ``encode_jpeg``: the baseline JFIF stream libjpeg
+  writes with its defaults for RGB (PIL's ``save(..., "JPEG")``): its
+  fixed-point YCbCr, 4:2:0 by ``h2v2_downsample``, the ``islow`` forward
+  DCT, the quality-scaled Annex K tables and the standard Huffman tables.
+- ``resize_lanczos``: PIL's ``Image.resize(..., LANCZOS)`` on uint8
+  images, byte for byte.
 - ``read_image``: PNG or JPEG by the file's signature; ``read_rgb`` the
   same as float RGB.
 - EXR: the pure-numpy codec of ``utils/exr.py``.
@@ -651,6 +657,353 @@ def read_rgb(path: str) -> np.ndarray:
         a = a[..., None]
     a = a[..., :3] if a.shape[-1] >= 3 else np.repeat(a[..., :1], 3, axis=-1)
     return a.astype(np.float32) / 255.0
+
+# ------------------------------------------------------------------ JPEG encoder
+
+# ITU T.81 Annex K: quantization tables in natural order, Huffman code
+# counts (lengths 1..16) and symbols of the DC and AC tables (luma, chroma)
+_STD_QUANT = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+              14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+              18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+              49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99], np.int64),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+              24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+             + [99] * 32, np.int64))
+_STD_HUFF = {   # (class 0 DC / 1 AC, table) -> (counts, symbols)
+    (0, 0): (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (1, 0): (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125]), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a16"
+        "1718191a25262728292a3435363738393a434445464748494a535455565758595a63646566676869"
+        "6a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6"
+        "b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+        "f9fa")),
+    (0, 1): (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (1, 1): (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119]), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434"
+        "e125f11718191a262728292a35363738393a434445464748494a535455565758595a636465666768"
+        "696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
+        "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+        "f9fa")),
+}
+# libjpeg's jfdctint.c constants (13-bit fixed point) and its jccolor.c scale
+_FIX = dict(c0298=2446, c0390=3196, c0541=4433, c0765=6270, c0899=7373, c1175=9633,
+            c1501=12299, c1847=15137, c1961=16069, c2053=16819, c2562=20995, c3072=25172)
+_CB, _PB = 13, 2            # CONST_BITS, PASS1_BITS
+
+
+def _descale(x: np.ndarray, n: int) -> np.ndarray:
+    return (x + (1 << (n - 1))) >> n
+
+
+def _fdct_1d(d, pass1: bool):
+    """One pass of libjpeg's jpeg_fdct_islow over axis 0 of d [8, ...] (int64)."""
+    f = _FIX
+    tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
+    tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5 = d[2] + d[5], d[2] - d[5]
+    tmp3, tmp4 = d[3] + d[4], d[3] - d[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    out = [None] * 8
+    sh = _CB - _PB if pass1 else _CB + _PB
+    if pass1:
+        out[0] = (tmp10 + tmp11) << _PB
+        out[4] = (tmp10 - tmp11) << _PB
+    else:
+        out[0] = _descale(tmp10 + tmp11, _PB)
+        out[4] = _descale(tmp10 - tmp11, _PB)
+    z1 = (tmp12 + tmp13) * f["c0541"]
+    out[2] = _descale(z1 + tmp13 * f["c0765"], sh)
+    out[6] = _descale(z1 - tmp12 * f["c1847"], sh)
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * f["c1175"]
+    tmp4, tmp5 = tmp4 * f["c0298"], tmp5 * f["c2053"]
+    tmp6, tmp7 = tmp6 * f["c3072"], tmp7 * f["c1501"]
+    z1, z2 = z1 * -f["c0899"], z2 * -f["c2562"]
+    z3, z4 = z3 * -f["c1961"] + z5, z4 * -f["c0390"] + z5
+    out[7] = _descale(tmp4 + z1 + z3, sh)
+    out[5] = _descale(tmp5 + z2 + z4, sh)
+    out[3] = _descale(tmp6 + z2 + z3, sh)
+    out[1] = _descale(tmp7 + z1 + z4, sh)
+    return np.stack(out)
+
+
+def _quantized_blocks(plane: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """[h, w] samples (multiples of 8) -> [h/8, w/8, 64] quantized islow DCT
+    coefficients in natural order (libjpeg's divisor 8q, halves rounded
+    away from zero)."""
+    h, w = plane.shape
+    b = plane.astype(np.int64).reshape(h // 8, 8, w // 8, 8).transpose(1, 3, 0, 2) - 128
+    rows = _fdct_1d(b.transpose(1, 0, 2, 3), True).transpose(1, 0, 2, 3)   # along x
+    c = _fdct_1d(rows, False)                                              # along y
+    c = c.transpose(2, 3, 0, 1).reshape(h // 8, w // 8, 64)
+    q = qt * 8
+    return np.sign(c) * ((np.abs(c) + q // 2) // q)
+
+
+def _quant_tables(quality: int):
+    """libjpeg's jpeg_set_quality: the Annex K tables scaled and clamped to
+    1..255 (baseline)."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return [np.clip((t * scale + 50) // 100, 1, 255) for t in _STD_QUANT]
+
+
+@functools.lru_cache(maxsize=None)
+def _huff_codes(key):
+    """(class, table) -> (code [256], length [256]) of the standard table."""
+    counts, symbols = _STD_HUFF[key]
+    code = np.zeros(256, np.int64)
+    size = np.zeros(256, np.int64)
+    c, k = 0, 0
+    for L in range(1, 17):
+        for _ in range(counts[L - 1]):
+            code[symbols[k]], size[symbols[k]] = c, L
+            c, k = c + 1, k + 1
+        c <<= 1
+    return code, size
+
+
+def _bit_len(v: np.ndarray) -> np.ndarray:
+    a = np.abs(v)
+    n = np.zeros_like(a)
+    while True:
+        nz = a > 0
+        if not nz.any():
+            return n
+        n += nz
+        a >>= 1
+
+
+def _entropy_code(zz: np.ndarray, tab: np.ndarray, comp: np.ndarray) -> bytes:
+    """Huffman-code blocks in scan order: zz [B, 64] zigzag coefficients,
+    tab [B] their table (0 luma, 1 chroma), comp [B] their component (for
+    the DC predictions) -> the entropy-coded segment, byte-stuffed and
+    padded with ones."""
+    B = zz.shape[0]
+    dc = zz[:, 0].copy()
+    diff = np.empty_like(dc)
+    for c in np.unique(comp):
+        idx = np.nonzero(comp == c)[0]
+        diff[idx] = np.diff(dc[idx], prepend=0)
+    ev_blk, ev_seq, ev_val, ev_len = [], [], [], []
+
+    def emit(blk, seq, key_tab, cls, sym, extra, nextra):
+        for t in (0, 1):
+            m = key_tab == t
+            if not m.any():
+                continue
+            code, size = _huff_codes((cls, t))
+            s = sym[m]
+            ev_blk.append(blk[m])
+            ev_seq.append(seq[m])
+            ev_val.append((code[s] << nextra[m]) | extra[m])
+            ev_len.append(size[s] + nextra[m])
+
+    blocks = np.arange(B)
+    s = _bit_len(diff)
+    emit(blocks, np.zeros(B, np.int64), tab, 0, s, np.where(diff < 0, diff + (1 << s) - 1, diff), s)
+    bi, kk = np.nonzero(zz[:, 1:])
+    kk = kk + 1
+    if bi.size:
+        first = np.r_[True, bi[1:] != bi[:-1]]
+        prev = np.where(first, 0, np.r_[0, kk[:-1]])
+        run = kk - prev - 1
+        v = zz[bi, kk]
+        s = _bit_len(v)
+        emit(bi, 2 * kk, tab[bi], 1, ((run & 15) << 4) | s, np.where(v < 0, v + (1 << s) - 1, v), s)
+        nzrl = run >> 4
+        if nzrl.any():
+            zb = np.repeat(bi, nzrl)
+            zs = np.repeat(2 * kk - 1, nzrl)
+            zero = np.zeros_like(zb)
+            emit(zb, zs, tab[zb], 1, np.full_like(zb, 0xF0), zero, zero)
+        last = np.full(B, 0, np.int64)
+        last[bi] = kk          # the largest k of each block (nonzero lists k ascending)
+    else:
+        last = np.zeros(B, np.int64)
+    eob = np.nonzero(last < 63)[0]
+    zero = np.zeros_like(eob)
+    emit(eob, np.full_like(eob, 200), tab[eob], 1, zero, zero, zero)
+
+    blk, seq = np.concatenate(ev_blk), np.concatenate(ev_seq)
+    order = np.lexsort((seq, blk))
+    val, ln = np.concatenate(ev_val)[order], np.concatenate(ev_len)[order]
+    total = int(ln.sum())
+    pos = np.repeat(np.cumsum(ln) - ln, ln)
+    j = np.arange(total) - pos                             # bit index within its event
+    bits = (np.repeat(val, ln) >> (np.repeat(ln, ln) - 1 - j)) & 1
+    pad = -total % 8
+    bits = np.concatenate([bits.astype(np.uint8), np.ones(pad, np.uint8)])
+    return np.packbits(bits).tobytes().replace(b"\xff", b"\xff\x00")
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 75) -> bytes:
+    """uint8 RGB [H, W, 3] or gray [H, W] -> the baseline JFIF stream libjpeg
+    writes with its defaults, as PIL's ``save(..., "JPEG", quality=q)``
+    does: its fixed-point YCbCr, 4:2:0 with ``h2v2_downsample``'s
+    alternating rounding bias, the islow forward DCT, the quality-scaled
+    Annex K tables, the standard Huffman tables; edge samples replicated as
+    libjpeg's preprocessor replicates them, and the dummy luma blocks past
+    the image zero with the previous block's DC.  Gray: one component, the
+    luma tables."""
+    a = np.asarray(img)
+    gray = a.ndim == 2
+    if a.dtype != np.uint8 or not (gray or (a.ndim == 3 and a.shape[2] == 3)):
+        raise ValueError(f"encode_jpeg takes uint8 [H, W, 3] or [H, W], got {a.dtype} {a.shape}")
+    H, W = a.shape[:2]
+    qt = _quant_tables(quality)
+    if gray:
+        gh, gw = -(-H // 8), -(-W // 8)
+        g = np.pad(a.astype(np.int64), ((0, 8 * gh - H), (0, 8 * gw - W)), mode="edge")
+        zz = _quantized_blocks(g, qt[0]).reshape(-1, 64)[:, _ZIGZAG]
+        zeros = np.zeros(zz.shape[0], np.int64)
+        data = _entropy_code(zz, zeros, zeros)
+        qt, sof, sos = qt[:1], bytes([1, 0x11, 0]), bytes([1, 1, 0x00, 0, 63, 0])
+    else:
+        data = _entropy_code_ycc(a, qt)
+        sof = bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])
+        sos = bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])
+
+    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\0\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for i, t in enumerate(qt):
+        out.append(_segment(0xDB, bytes([i]) + bytes(t[_ZIGZAG].astype(np.uint8))))
+    out.append(_segment(0xC0, struct.pack(">BHHB", 8, H, W, len(sof) // 3) + sof))
+    for t in range(len(qt)):
+        for cls in (0, 1):
+            counts, symbols = _STD_HUFF[(cls, t)]
+            out.append(_segment(0xC4, bytes([(cls << 4) | t]) + counts + symbols))
+    out.append(_segment(0xDA, sos))
+    out += [data, b"\xff\xd9"]
+    return b"".join(out)
+
+
+def _entropy_code_ycc(a: np.ndarray, qt) -> bytes:
+    """The entropy-coded scan of an RGB image at 4:2:0 (see encode_jpeg)."""
+    H, W = a.shape[:2]
+    x = a.astype(np.int64)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    half = 1 << 15
+    fx = lambda c: int(c * 65536 + 0.5)  # noqa: E731  (jccolor.c FIX)
+    y = (fx(0.299) * r + fx(0.587) * g + fx(0.114) * b + half) >> 16
+    cb = (-fx(0.16874) * r - fx(0.33126) * g + fx(0.5) * b + (128 << 16) + half - 1) >> 16
+    cr = (fx(0.5) * r - fx(0.41869) * g - fx(0.08131) * b + (128 << 16) + half - 1) >> 16
+
+    mh, mw = -(-H // 16), -(-W // 16)              # MCUs
+    yh, yw = -(-H // 8), -(-W // 8)                # real luma blocks
+    yp = np.pad(y, ((0, 8 * yh - H), (0, 8 * yw - W)), mode="edge")
+    # chroma: rows edge-padded to a pair and columns to the MCU width,
+    # downsampled, then the last downsampled row repeated to the MCU height
+    bias = np.tile([1, 2], 4 * mw)[None]
+    chroma = []
+    for c in (cb, cr):
+        c = np.pad(c, ((0, H % 2), (0, 16 * mw - W)), mode="edge")
+        c = (c[0::2, 0::2] + c[0::2, 1::2] + c[1::2, 0::2] + c[1::2, 1::2] + bias) >> 2
+        chroma.append(np.pad(c, ((0, 8 * mh - c.shape[0]), (0, 0)), mode="edge"))
+
+    yq = _quantized_blocks(yp, qt[0])
+    yfull = np.zeros((2 * mh, 2 * mw, 64), np.int64)
+    yfull[:yh, :yw] = yq
+    if yw < 2 * mw:                                # dummy column: the DC of its left neighbour
+        yfull[:yh, yw, 0] = yfull[:yh, yw - 1, 0]
+    if yh < 2 * mh:                                # dummy row: the DC of the MCU's upper-right block
+        yfull[yh, :, 0] = np.repeat(yfull[yh - 1, 1::2, 0], 2)
+    cq = [_quantized_blocks(c, qt[1]) for c in chroma]
+
+    yb = yfull.reshape(mh, 2, mw, 2, 64).transpose(0, 2, 1, 3, 4).reshape(mh, mw, 4, 64)
+    mcu = np.concatenate([yb, cq[0][:, :, None], cq[1][:, :, None]], axis=2).reshape(-1, 64)
+    comp = np.tile([0, 0, 0, 0, 1, 2], mh * mw)
+    return _entropy_code(mcu[:, _ZIGZAG], (comp > 0).astype(np.int64), comp)
+
+
+def write_jpeg(path: str, img: np.ndarray, quality: int = 75) -> None:
+    """uint8 RGB [H, W, 3] or gray [H, W] -> a baseline JPEG file
+    (``encode_jpeg``)."""
+    with open(path, "wb") as f:
+        f.write(encode_jpeg(img, quality))
+
+
+# ------------------------------------------------------------------ resampling
+
+_PRECISION_BITS = 32 - 8 - 2          # Pillow's 8-bit resampling coefficients
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """Pillow's 3-lobe Lanczos: sinc(x) sinc(x / 3) on [-3, 3)."""
+    def sinc(t):
+        pt = np.pi * t
+        return np.where(t == 0.0, 1.0, np.sin(pt) / np.where(t == 0.0, 1.0, pt))
+    return np.where((x >= -3.0) & (x < 3.0), sinc(x) * sinc(x / 3.0), 0.0)
+
+
+def _resample_coeffs(in_size: int, out_size: int):
+    """Pillow's precompute_coeffs + normalize_coeffs_8bpc for a box
+    [0, in_size): (first input index [out], taps [out, K] int64) with the
+    filter's support scaled by the reduction factor and each row's weights
+    normalized, then rounded to 22-bit fixed point."""
+    scale = in_size / out_size
+    fscale = max(scale, 1.0)
+    support = 3.0 * fscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    x = np.arange(ksize)[None]
+    w = _lanczos((x + xmin[:, None] - center[:, None] + 0.5) / fscale)
+    w = np.where(x < xmax[:, None], w, 0.0)
+    ww = w.sum(axis=1, keepdims=True)
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    one = float(1 << _PRECISION_BITS)
+    k = np.trunc(np.where(w < 0, -0.5 + w * one, 0.5 + w * one)).astype(np.int64)
+    return xmin, k
+
+
+def _resample_axis(a: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One Pillow 8-bit resampling pass along axis 0 or 1 of uint8 [H, W, C]."""
+    n = a.shape[axis]
+    xmin, k = _resample_coeffs(n, out_size)
+    src = np.moveaxis(a.astype(np.int64), axis, 0)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    kk = k.reshape(k.shape + (1,) * (src.ndim - 1))
+    for j in range(k.shape[1]):
+        acc += src[np.minimum(xmin + j, n - 1)] * kk[:, j]
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_lanczos(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """uint8 [H, W] or [H, W, C] -> [h, w(, C)]: Pillow's ``Image.resize((w,
+    h), LANCZOS)``: the horizontal pass then the vertical, each clipped to
+    uint8; an image with alpha (C = 2 or 4) resized premultiplied, as
+    Pillow converts RGBA to RGBa and back."""
+    a = np.asarray(img)
+    if a.dtype != np.uint8:
+        raise TypeError(f"resize_lanczos takes uint8, got {a.dtype}")
+    gray = a.ndim == 2
+    a = a[..., None] if gray else a
+    alpha = a.shape[-1] in (2, 4)
+    if alpha:
+        x = a.astype(np.int64)
+        t = x[..., :-1] * x[..., -1:] + 128
+        a = np.concatenate([((t >> 8) + t) >> 8, x[..., -1:]], axis=-1).astype(np.uint8)
+    if (a.shape[1], a.shape[0]) != (w, h):
+        if a.shape[1] != w:
+            a = _resample_axis(a, w, 1)
+        if a.shape[0] != h:
+            a = _resample_axis(a, h, 0)
+    if alpha:
+        x = a.astype(np.int64)
+        al = x[..., -1:]
+        un = np.clip(255 * x[..., :-1] // np.maximum(al, 1), 0, 255)
+        col = np.where((al == 255) | (al == 0), x[..., :-1], un)
+        a = np.concatenate([col, al], axis=-1).astype(np.uint8)
+    return a[..., 0] if gray else a
+
 
 # ------------------------------------------------------------------ float dumps
 

@@ -1,7 +1,8 @@
 """On the card only: the CUDA kernels K1 and K2 (csrc/tile_trace.cu, with
 the tile split forced off and on), K3 (csrc/dense_hit.cu, closest and
 any hit, split forced off and on, also with t_min < 0, rows equal bit for
-bit) and K4
+bit; on a bare mesh through ``dense_intersect`` and as the cluster tracer
+kind's dense pass) and K4
 (csrc/scatter_add.cu, its 1-D and [N, Kc] entries and a contention-heavy
 input) against their plain PyTorch versions on the same inputs, and the
 launch counters.  Skipped without a CUDA device.  On a
@@ -290,3 +291,41 @@ def test_gather_rows_backward_launches_k4(dev):
     ref = table.detach().cpu().requires_grad_(True)
     hashgrid.hashgrid_encode(ref, x.cpu(), spec).square().sum().backward()
     torch.testing.assert_close(table.grad.cpu(), ref.grad, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("split", [1, None])
+def test_dense_intersect_launches_k3_equal_plain(dev, split):
+    """dense_intersect on a bare mesh: one K3 launch, its HitResult equal bit
+    for bit to the one computed from the plain version's rows."""
+    v, tr = bumpy_sphere(24, 48)
+    o, _ = shell_rays(5000, seed=3, radius=1.5)
+    d = np.random.RandomState(4).normal(size=o.shape).astype(np.float32) * 0.4 - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    vt, tt = torch.from_numpy(v).to(dev), torch.from_numpy(tr).to(dev)
+    ro, rd = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    before = dense_tracer.dense_hit.launches
+    k = dense_tracer.dense_intersect(vt, tt, ro, rd, t_max=2.5, split=split)
+    torch.cuda.synchronize()
+    assert dense_tracer.dense_hit.launches == before + 1
+    p = dense_tracer.dense_intersect(vt.cpu(), tt.cpu(), ro.cpu(), rd.cpu(), t_max=2.5)
+    assert (p.prim >= 0).any() and (p.prim < 0).any()
+    for f in k._fields:
+        assert same_bits(getattr(k, f).cpu(), getattr(p, f)), f
+
+
+def test_cluster_kind_dense_pass_launches_k3(dev):
+    """The cluster tracer kind's dense pass (a mesh under dense_threshold)
+    runs K3's closest hit on the card, for closest and any hit."""
+    from mirres_restir_nerf_mesh_torch.ops.tracer import build_tracer
+
+    v, tr = bumpy_sphere(24, 48)
+    o, d = shell_rays(4096, seed=5)
+    ro, rd = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    tracer = build_tracer(torch.from_numpy(v).to(dev), torch.from_numpy(tr).to(dev),
+                          kind="cluster")
+    before = dense_tracer.dense_hit.launches
+    hit = tracer.intersect(ro, rd)
+    occ = tracer.occluded(ro, rd, 1e9)
+    torch.cuda.synchronize()
+    assert dense_tracer.dense_hit.launches == before + 2
+    assert torch.equal(occ, hit.prim >= 0)

@@ -106,9 +106,11 @@ def test_compact_chunks_equivalence():
 
 
 def test_unported_options_raise():
-    """What the port does not have yet raises: the lbvh and cluster tracer
-    kinds.  The LPIPS term of the stage-1 loss, which raised here before it
-    was ported, runs: a frame's loss with lambda_lpips > 0 is finite and
+    """Every tracer kind of the reference is ported: an unknown kind raises,
+    and a frame renders with the lbvh and cluster kinds to the tile kind's
+    buffers (the exact lbvh within 1e-5, cluster on its dense route here).
+    The LPIPS term of the stage-1 loss, which raised here before it was
+    ported, runs: a frame's loss with lambda_lpips > 0 is finite and
     larger by the term (its parity with the reference is held in
     tests/test_torch_train_loss.py and tests/test_torch_metrics.py)."""
     from mirres_restir_nerf_mesh_torch.config import Config, finalize
@@ -116,11 +118,17 @@ def test_unported_options_raise():
     from mirres_restir_nerf_mesh_torch.train.losses import build_topology
     from mirres_restir_nerf_mesh_torch.train.stage1 import stage1_loss
 
-    for kind in ("lbvh", "cluster"):
-        with pytest.raises(NotImplementedError):
-            Tracer(None, kind=kind)
+    with pytest.raises(ValueError):
+        Tracer(None, kind="bvh")
     _, params, static, inputs, rand = frame_case(H=16, spp=1, faces=1200, dense_threshold=8192,
                                                  run_reference=False)
+    outs = {kind: ts.render_stage1(params, ts.Stage1Static(**{**static.__dict__, "tracer": kind}),
+                                   *inputs, rand=rand) for kind in ("tile", "cluster", "lbvh")}
+    for kind in ("cluster", "lbvh"):
+        for k in ("image", "mask", "depth", "kd"):
+            np.testing.assert_allclose(n(outs[kind][k]).astype(np.float64),
+                                       n(outs["tile"][k]).astype(np.float64), rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{kind} {k}")
     verts, rays_o, rays_d = inputs
     tris = n(static.tris)
     batch = {"rays_o": rays_o, "rays_d": rays_d, "pixels": torch.full((16 * 16, 3), 0.5)}
