@@ -16,13 +16,17 @@ from ..utils.math import cross, safe_normalize
 
 
 def auto_normals(verts: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:
-    """Area-weighted vertex normals by scatter-add (+z for degenerate)."""
+    """Area-weighted vertex normals by scatter-add (+z for degenerate).  The
+    sums run in face order on every device (``index_put`` with accumulate
+    sorts the rows; ``index_add`` on the card adds by atomics, in an order
+    that changes from call to call, and a vertex normal an ulp apart moves
+    ReSTIR's picks between two renders of one state)."""
     t = tris.long()
     v0, v1, v2 = verts[t[:, 0]], verts[t[:, 1]], verts[t[:, 2]]
     fn = cross(v1 - v0, v2 - v0)
     vn = torch.zeros_like(verts)
     for k in range(3):
-        vn = vn.index_add(0, t[:, k], fn)
+        vn = vn.index_put((t[:, k],), fn, accumulate=True)
     bad = torch.sum(vn * vn, dim=-1, keepdim=True) < 1e-20
     vn = torch.where(bad, torch.tensor([0.0, 0.0, 1.0], device=verts.device), vn)
     return safe_normalize(vn)

@@ -4,15 +4,20 @@ on numpy and the standard library alone: no PIL, no cv2.
 - Radiance RGBE (``.hdr``): ``load_hdr`` reads flat and new-style RLE
   scanlines, ``save_hdr`` writes RLE (the run rules of the rgbe.c that
   OpenCV's codec uses, so the bytes match its writer's).
-- PNG: ``read_png`` decodes 8-bit gray, gray + alpha, RGB and RGBA,
-  non-interlaced, all five filter types; ``write_png`` writes filter type 0
-  through ``zlib``.
-- JPEG: ``read_jpeg`` decodes baseline (sequential DCT, Huffman, 8-bit)
+- PNG: ``read_png`` decodes 8- and 16-bit gray, gray + alpha, RGB, RGBA
+  and 8-bit palette images, plain or Adam7-interlaced, all five filter
+  types, into what ``np.asarray(PIL.Image.open(p))`` gives (16-bit gray
+  as uint16, 16-bit colour as its high bytes, a palette as its indices);
+  1-, 2- and 4-bit images raise ``ValueError``.  ``write_png`` writes 8-bit
+  images, filter type 0, through ``zlib``.
+- JPEG: ``read_jpeg`` decodes baseline and progressive (Huffman, 8-bit)
   files: gray or YCbCr at 4:4:4, 4:2:2 and 4:2:0, restart markers, by
-  libjpeg's rules (the ``islow`` integer IDCT, "fancy" triangular chroma
-  upsampling, its fixed-point colour conversion), so its pixels equal what
-  PIL reads through libjpeg-turbo.  Progressive, arithmetic-coded,
-  lossless, 12-bit and CMYK files raise ``ValueError``.
+  libjpeg's rules (the progressive scans' successive approximation as
+  jdphuff.c reads it, the ``islow`` integer IDCT, "fancy" triangular
+  chroma upsampling, its fixed-point colour conversion), so its pixels
+  equal what PIL reads through libjpeg-turbo.  Arithmetic-coded,
+  lossless, 12-bit and CMYK files, and progressive ones whose scans leave
+  coefficients unrefined (libjpeg smooths those), raise ``ValueError``.
 - ``write_jpeg`` / ``encode_jpeg``: the baseline JFIF stream libjpeg
   writes with its defaults for RGB (PIL's ``save(..., "JPEG")``): its
   fixed-point YCbCr, 4:2:0 by ``h2v2_downsample``, the ``islow`` forward
@@ -20,7 +25,7 @@ on numpy and the standard library alone: no PIL, no cv2.
 - ``resize_lanczos``: PIL's ``Image.resize(..., LANCZOS)`` on uint8
   images, byte for byte.
 - ``read_image``: PNG or JPEG by the file's signature; ``read_rgb`` the
-  same as float RGB.
+  same as float RGB, as PIL's ``convert("RGB")`` (a palette applied).
 - EXR: the pure-numpy codec of ``utils/exr.py``.
 """
 
@@ -182,7 +187,10 @@ def load_hdr(path: str) -> np.ndarray:
 # ------------------------------------------------------------------ PNG
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}     # colour type -> channels (8-bit)
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}     # colour type -> samples a pixel
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -232,14 +240,35 @@ def _unfilter_row(kind: int, row: np.ndarray, prev: np.ndarray, bpp: int) -> np.
     return np.asarray(cur, np.uint8)
 
 
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """h filtered rows of 1 + stride bytes -> [h, stride] uint8."""
+    rows = raw.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        prev = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev, bpp)
+    return out
+
+
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit, non-interlaced PNG (gray, gray + alpha, RGB or RGBA) as uint8
-    [H, W] (gray) or [H, W, C]."""
+    """A PNG as ``_read_png`` reads it, without the palette."""
+    return _read_png(path)[0]
+
+
+def _read_png(path: str):
+    """-> (the samples, the palette [256, 3] uint8 or None).  The samples
+    are a PNG as ``np.asarray(PIL.Image.open(path))`` gives it: gray [H, W]
+    (uint16 at 16 bits, PIL's mode I;16), gray + alpha [H, W, 2], RGB and
+    RGBA [H, W, C] uint8 (at 16 bits the high byte of each sample, as PIL's
+    RGB and RGBA modes keep; 16-bit gray + alpha comes out RGBA, as PIL
+    opens it), palette [H, W] uint8 indices (PLTE and tRNS not applied, as
+    PIL's P mode); 8 or 16 bits, plain or Adam7-interlaced.  1-, 2- and
+    4-bit samples raise ValueError."""
     with open(path, "rb") as f:
         buf = f.read()
     if not buf.startswith(_PNG_SIG):
         raise ValueError(f"not a PNG file: {path}")
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, plte = 8, [], None, None
     while pos < len(buf):
         (size,) = struct.unpack_from(">I", buf, pos)
         kind = buf[pos + 4: pos + 8]
@@ -247,22 +276,46 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + size
         if kind == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", data)
+        elif kind == b"PLTE":
+            plte = np.zeros((256, 3), np.uint8)
+            n = min(len(data) // 3, 256)
+            plte[:n] = np.frombuffer(data[:3 * n], np.uint8).reshape(n, 3)
         elif kind == b"IDAT":
             idat.append(data)
         elif kind == b"IEND":
             break
     W, H, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise ValueError(f"unsupported PNG (bit depth {depth}, colour type {ctype}, "
+    if ctype == 3 and plte is None:
+        raise ValueError(f"corrupt PNG (palette image without PLTE): {path}")
+    if ctype not in _CHANNELS or depth not in (8, 16) or (ctype == 3 and depth != 8) \
+            or interlace not in (0, 1):
+        raise ValueError(f"unsupported PNG ({depth}-bit samples, colour type {ctype}, "
                          f"interlace {interlace}): {path}")
     C = _CHANNELS[ctype]
-    stride = W * C
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(H, stride + 1)
-    out = np.empty((H, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(H):
-        prev = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prev, C)
-    return out.reshape(H, W) if C == 1 else out.reshape(H, W, C)
+    bpp = C * depth // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if interlace == 0:
+        out = _unfilter(raw[:H * (W * bpp + 1)], H, W * bpp, bpp).reshape(H, W, bpp)
+    else:
+        out = np.empty((H, W, bpp), np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            w, h = -(-(W - x0) // dx), -(-(H - y0) // dy)
+            if w <= 0 or h <= 0:
+                continue
+            n = h * (w * bpp + 1)
+            out[y0::dy, x0::dx] = _unfilter(raw[at:at + n], h, w * bpp, bpp).reshape(h, w, bpp)
+            at += n
+    if depth == 16:
+        out = out.reshape(H, W, C, 2)
+        if C == 1:
+            out = out[..., 0].astype(np.uint16) << 8 | out[..., 1]
+        else:
+            out = out[..., 0]
+            if C == 2:        # PIL reads 16-bit gray + alpha as RGBA
+                out, C = out[..., [0, 0, 0, 1]], 4
+    out = np.ascontiguousarray(out.reshape(H, W, C))
+    return (out[..., 0] if C == 1 else out), (plte if ctype == 3 else None)
 
 
 # ------------------------------------------------------------------ JPEG
@@ -273,12 +326,35 @@ _ZIGZAG = np.array([
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
-_SOF_UNSUPPORTED = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+_SOF_UNSUPPORTED = {0xC3: "lossless", 0xC5: "differential sequential",
                     0xC6: "differential progressive", 0xC7: "differential lossless",
                     0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
                     0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded differential",
                     0xCE: "arithmetic-coded differential progressive",
                     0xCF: "arithmetic-coded differential lossless"}
+
+
+def _huffman_codes(counts: bytes, symbols: bytes):
+    """A 16-bit peek -> (code length, symbol) of one Huffman table as two
+    int64 arrays; length 0 where no code starts with the peek's bits."""
+    length = np.zeros(1 << 16, np.int64)
+    sym = np.zeros(1 << 16, np.int64)
+    code, k = 0, 0
+    for L in range(1, 17):
+        for _ in range(counts[L - 1]):
+            lo = code << (16 - L)
+            length[lo: lo + (1 << (16 - L))] = L
+            sym[lo: lo + (1 << (16 - L))] = symbols[k]
+            code, k = code + 1, k + 1
+        code <<= 1
+    return length, sym
+
+
+@functools.lru_cache(maxsize=8)
+def _huffman_pairs(counts: bytes, symbols: bytes) -> list:
+    """A 16-bit peek -> (code length, symbol) list (progressive scans;
+    kept for the next files, read only)."""
+    return list(zip(*(x.tolist() for x in _huffman_codes(counts, symbols))))
 
 
 @functools.lru_cache(maxsize=8)
@@ -290,16 +366,7 @@ def _huffman_lookup(counts: bytes, symbols: bytes, ac: bool) -> list:
     coefficient is ``value`` after ``run`` zeros (run -1: end of block).
     n < 0: a code of -n bits whose extra bits (``value`` of them) lie past
     the peek.  n == 0: no code starts with these bits."""
-    length = np.zeros(1 << 16, np.int64)
-    sym = np.zeros(1 << 16, np.int64)
-    code, k = 0, 0
-    for L in range(1, 17):
-        for _ in range(counts[L - 1]):
-            lo = code << (16 - L)
-            length[lo: lo + (1 << (16 - L))] = L
-            sym[lo: lo + (1 << (16 - L))] = symbols[k]
-            code, k = code + 1, k + 1
-        code <<= 1
+    length, sym = _huffman_codes(counts, symbols)
     peek = np.arange(1 << 16, dtype=np.int64)
     s = sym & 15 if ac else sym
     run = sym >> 4 if ac else np.zeros_like(sym)
@@ -365,6 +432,106 @@ def _decode_segment(seg: bytes, blocks, comp_of, dc_tabs, ac_tabs, coef, path):
                 raise ValueError(f"corrupt JPEG (coefficient past 63): {path}")
             coef[base + k] = v
             k += 1
+    if (p + 7) >> 3 > len(seg):
+        raise ValueError(f"corrupt JPEG (entropy data ran out): {path}")
+
+
+def _decode_progressive_segment(seg: bytes, blocks, comp_of, spectral, dc_tabs, ac_tabs, coef,
+                                path):
+    """Entropy-decode one restart interval of a progressive scan (libjpeg's
+    jdphuff.c): ``spectral`` = (Ss, Se, Ah, Al); a DC scan (Ss = 0) first
+    (Huffman-coded differences, shifted left by Al) or refining (one bit a
+    block); an AC scan (one component) first (runs, end-of-band runs,
+    coefficients shifted left by Al) or refining (a correction bit for each
+    nonzero coefficient passed, new coefficients of +-2^Al); DC predictions
+    and the end-of-band run start at 0."""
+    data = np.frombuffer(seg + b"\0" * 8, np.uint8).astype(np.uint32)
+    win = ((data[:-3] << 24) | (data[1:-2] << 16) | (data[2:-1] << 8) | data[3:]).tolist()
+    ss, se, ah, al = spectral
+    p = 0
+
+    def huff(tab):
+        nonlocal p
+        n, sym = tab[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+        if n == 0:
+            raise ValueError(f"corrupt JPEG (bad Huffman code): {path}")
+        p += n
+        return sym
+
+    def bits(n):
+        nonlocal p
+        v = (win[p >> 3] >> (32 - (p & 7) - n)) & ((1 << n) - 1)
+        p += n
+        return v
+
+    if ss == 0 and ah == 0:                        # DC, first scan
+        pred = [0] * len(dc_tabs)
+        for b, ci in zip(blocks, comp_of):
+            s = huff(dc_tabs[ci])
+            pred[ci] += _extend(bits(s), s) if s else 0
+            coef[b * 64] = pred[ci] << al
+    elif ss == 0:                                  # DC, refinement
+        for b in blocks:
+            if bits(1):
+                coef[b * 64] |= 1 << al
+    elif ah == 0:                                  # AC, first scan
+        tab, eobrun = ac_tabs[0], 0
+        for b in blocks:
+            if eobrun:
+                eobrun -= 1
+                continue
+            base, k = b * 64, ss
+            while k <= se:
+                rs = huff(tab)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    if k > 63:
+                        raise ValueError(f"corrupt JPEG (coefficient past 63): {path}")
+                    coef[base + k] = _extend(bits(s), s) << al
+                elif r == 15:
+                    k += 15
+                else:
+                    eobrun = (1 << r) + (bits(r) if r else 0) - 1
+                    break
+                k += 1
+    else:                                          # AC, refinement
+        tab, eobrun = ac_tabs[0], 0
+        p1 = 1 << al
+        m1 = -p1
+        for b in blocks:
+            base, k = b * 64, ss
+            if eobrun == 0:
+                while k <= se:
+                    rs = huff(tab)
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        s = p1 if bits(1) else m1
+                    elif r != 15:
+                        eobrun = (1 << r) + (bits(r) if r else 0)
+                        break
+                    while k <= se:                 # pass r zero coefficients
+                        c = coef[base + k]
+                        if c:
+                            if bits(1) and not c & p1:
+                                coef[base + k] = c + (p1 if c >= 0 else m1)
+                        else:
+                            r -= 1
+                            if r < 0:
+                                break
+                        k += 1
+                    if s:
+                        if k > 63:
+                            raise ValueError(f"corrupt JPEG (coefficient past 63): {path}")
+                        coef[base + k] = s
+                    k += 1
+            if eobrun:                             # the band's rest: correction bits only
+                while k <= se:
+                    c = coef[base + k]
+                    if c and bits(1) and not c & p1:
+                        coef[base + k] = c + (p1 if c >= 0 else m1)
+                    k += 1
+                eobrun -= 1
     if (p + 7) >> 3 > len(seg):
         raise ValueError(f"corrupt JPEG (entropy data ran out): {path}")
 
@@ -462,14 +629,14 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """A baseline JPEG as uint8 [H, W] (gray) or [H, W, 3] (RGB), decoded
-    by libjpeg's rules (see the module docstring).  The entropy decode is a
-    Python loop; the rest runs on whole arrays."""
+    """A baseline or progressive JPEG as uint8 [H, W] (gray) or [H, W, 3]
+    (RGB), decoded by libjpeg's rules (see the module docstring).  The
+    entropy decode is a Python loop; the rest runs on whole arrays."""
     with open(path, "rb") as f:
         buf = f.read()
     if not buf.startswith(b"\xff\xd8"):
         raise ValueError(f"not a JPEG file: {path}")
-    qt, huff, frame, comps = {}, {}, None, []
+    qt, huff, frame, comps, progressive = {}, {}, None, [], False
     restart, adobe, jfif = 0, None, False
     coef = None
     pos = 2
@@ -489,15 +656,16 @@ def read_jpeg(path: str) -> np.ndarray:
         pos += size
         if m in _SOF_UNSUPPORTED:
             raise ValueError(f"unsupported JPEG ({_SOF_UNSUPPORTED[m]}): {path}")
-        if m in (0xC0, 0xC1):                               # baseline / extended, Huffman
+        if m in (0xC0, 0xC1, 0xC2):                         # baseline / extended / progressive
             prec, Y, X, nf = struct.unpack_from(">BHHB", seg)
             if prec != 8:
                 raise ValueError(f"unsupported JPEG ({prec}-bit samples): {path}")
             if Y == 0:
                 raise ValueError(f"unsupported JPEG (height in a DNL marker): {path}")
             comps = [dict(id=seg[6 + 3 * i], h=seg[7 + 3 * i] >> 4, v=seg[7 + 3 * i] & 15,
-                          tq=seg[8 + 3 * i]) for i in range(nf)]
+                          tq=seg[8 + 3 * i], bits=[-1] * 64) for i in range(nf)]
             frame = (Y, X)
+            progressive = m == 0xC2
         elif m == 0xC4:                                     # DHT
             i = 0
             while i < len(seg):
@@ -526,9 +694,14 @@ def read_jpeg(path: str) -> np.ndarray:
             if frame is None:
                 raise ValueError(f"corrupt JPEG (scan before frame header): {path}")
             coef, pos = _decode_scan(buf, pos, seg, frame, comps, qt, huff, restart, coef,
-                                     path)
+                                     progressive, path)
     if coef is None:
         raise ValueError(f"JPEG without a scan: {path}")
+    # libjpeg smooths the blocks of a progressive image whose first ten
+    # coefficients are not all fully refined (jdcoefct.c smoothing_ok)
+    if progressive and any(b != 0 for c in comps for b in c["bits"][:10]):
+        raise ValueError(f"unsupported JPEG (progressive scans that leave coefficients "
+                         f"unrefined): {path}")
     return _reconstruct(frame, comps, coef, adobe, jfif, path)
 
 
@@ -542,9 +715,10 @@ def _geometry(frame, comps):
     return hmax, vmax, mx, my
 
 
-def _decode_scan(buf, pos, sos, frame, comps, qt, huff, restart, coef, path):
-    """One baseline scan (interleaved, or one component alone) into the
-    flat zigzag coefficient list; returns (coef, position after the scan)."""
+def _decode_scan(buf, pos, sos, frame, comps, qt, huff, restart, coef, progressive, path):
+    """One scan (interleaved, or one component alone; sequential, or a
+    progressive scan's band and bits) into the flat zigzag coefficient
+    list; returns (coef, position after the scan)."""
     hmax, vmax, mx, my = _geometry(frame, comps)
     if coef is None:
         offs = np.cumsum([0] + [c["bw"] * c["bh"] for c in comps])
@@ -556,16 +730,25 @@ def _decode_scan(buf, pos, sos, frame, comps, qt, huff, restart, coef, path):
     sc = [by_id[sos[1 + 2 * i]] for i in range(ns)]
     tabs = [(sos[2 + 2 * i] >> 4, sos[2 + 2 * i] & 15) for i in range(ns)]
     ss, se, ahl = sos[1 + 2 * ns], sos[2 + 2 * ns], sos[3 + 2 * ns]
-    if (ss, se, ahl) != (0, 63, 0):
-        raise ValueError(f"unsupported JPEG (spectral selection / approximation): {path}")
+    ah, al = ahl >> 4, ahl & 15
+    if not progressive and (ss, se, ahl) != (0, 63, 0):
+        raise ValueError(f"corrupt JPEG (spectral selection in a sequential scan): {path}")
+    if progressive and (se > 63 or ss > se or (ss == 0) != (se == 0) or (ss and ns != 1)
+                        or al > 13):
+        raise ValueError(f"corrupt JPEG (progressive scan {ss}..{se}, {ah}/{al}): {path}")
     for c in sc:
         if "q" not in c:
             if c["tq"] not in qt:
                 raise ValueError(f"corrupt JPEG (missing quantization table): {path}")
             c["q"] = qt[c["tq"]]
+        c["bits"][ss:se + 1] = [al] * (se + 1 - ss)
     try:
-        dc = [_huffman_lookup(*huff[(0, t[0])], False) for t in tabs]
-        ac = [_huffman_lookup(*huff[(1, t[1])], True) for t in tabs]
+        if not progressive:
+            dc = [_huffman_lookup(*huff[(0, t[0])], False) for t in tabs]
+            ac = [_huffman_lookup(*huff[(1, t[1])], True) for t in tabs]
+        else:
+            dc = [_huffman_pairs(*huff[(0, t[0])]) for t in tabs] if ss == 0 and ah == 0 else []
+            ac = [_huffman_pairs(*huff[(1, t[1])]) for t in tabs] if ss else []
     except KeyError as e:
         raise ValueError(f"corrupt JPEG (missing Huffman table {e}): {path}") from None
     if ns == 1:                          # non-interleaved: the component's own block grid
@@ -595,8 +778,11 @@ def _decode_scan(buf, pos, sos, frame, comps, qt, huff, restart, coef, path):
                          f"{-(-len(blocks) // step)} expected): {path}")
     blocks, comp_of = blocks.tolist(), comp_of.tolist()
     for k, s in enumerate(segs):
-        _decode_segment(s, blocks[k * step:(k + 1) * step], comp_of[k * step:(k + 1) * step],
-                        dc, ac, coef, path)
+        part = blocks[k * step:(k + 1) * step], comp_of[k * step:(k + 1) * step]
+        if progressive:
+            _decode_progressive_segment(s, *part, (ss, se, ah, al), dc, ac, coef, path)
+        else:
+            _decode_segment(s, *part, dc, ac, coef, path)
     return coef, end
 
 
@@ -650,9 +836,19 @@ def read_image(path: str) -> np.ndarray:
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """A PNG or JPEG as float32 RGB [H, W, 3] in [0, 1]: gray repeated,
-    alpha dropped (PIL's ``convert("RGB")``)."""
-    a = read_image(path)
+    """A PNG or JPEG as float32 RGB [H, W, 3] in [0, 1], as PIL's
+    ``convert("RGB")``: gray repeated (16-bit gray clipped to 255), alpha
+    dropped, a palette applied."""
+    with open(path, "rb") as f:
+        png = f.read(8) == _PNG_SIG
+    if png:
+        a, plte = _read_png(path)
+        if plte is not None:
+            a = plte[a]
+    else:
+        a = read_image(path)
+    if a.dtype == np.uint16:
+        a = np.minimum(a, 255)
     if a.ndim == 2:
         a = a[..., None]
     a = a[..., :3] if a.shape[-1] >= 3 else np.repeat(a[..., :1], 3, axis=-1)

@@ -9,7 +9,8 @@ against the reference's (PIL).
 - chip_smoke.py's own baseline encoder (the card run's images): its files
   decode equal to PIL's reading of them, within 1.1x the mean error of
   libjpeg's encoder at the same quality and sampling from the source.
-- Progressive and arithmetic-coded files raise ValueError naming the file.
+- Lossless, 12-bit, CMYK and arithmetic-coded files raise ValueError naming
+  the file and the format (progressive files: test_torch_image_formats.py).
 - ``read_image`` tells PNG from JPEG by the signature.
 - ``_load_image`` on JPEG frames equals the reference's at downscale 1 (gray
   frames become 3 channels) and lies within 1/255 at downscale 2 (PIL
@@ -89,19 +90,27 @@ def test_chip_smoke_encoder_decodes_as_pil(tmp_path, hw):
 
 
 def test_unsupported_jpeg_raise_naming_the_file(tmp_path):
-    prog = str(tmp_path / "prog.jpg")
-    Image.fromarray(picture(40, 48)).save(prog, quality=90, progressive=True)
-    with pytest.raises(ValueError, match="progressive.*prog.jpg"):
-        read_jpeg(prog)
     base = tmp_path / "base.jpg"
     Image.fromarray(picture(40, 48)).save(base, quality=90)
-    data = bytearray(base.read_bytes())
+    data = bytes(base.read_bytes())
     sof = data.index(b"\xff\xc0")
-    data[sof + 1] = 0xC9                                    # the same frame, arithmetic-coded
-    arith = tmp_path / "arith.jpg"
-    arith.write_bytes(bytes(data))
-    with pytest.raises(ValueError, match="arithmetic.*arith.jpg"):
-        read_jpeg(str(arith))
+
+    def variant(name, at, byte):
+        d = bytearray(data)
+        d[at] = byte
+        (tmp_path / name).write_bytes(bytes(d))
+        return str(tmp_path / name)
+
+    # the same frame, arithmetic-coded; lossless; at 12-bit precision
+    for name, at, byte, what in (("arith.jpg", sof + 1, 0xC9, "arithmetic"),
+                                 ("lossless.jpg", sof + 1, 0xC3, "lossless"),
+                                 ("twelve.jpg", sof + 4, 12, "12-bit")):
+        with pytest.raises(ValueError, match=f"{what}.*{name}"):
+            read_jpeg(variant(name, at, byte))
+    cmyk = str(tmp_path / "cmyk.jpg")
+    Image.fromarray(picture(40, 48)).convert("CMYK").save(cmyk, quality=90)
+    with pytest.raises(ValueError, match="4 components.*cmyk.jpg"):
+        read_jpeg(cmyk)
 
 
 def test_read_image_dispatches_on_signature(tmp_path):

@@ -135,19 +135,21 @@ def test_cuda_request_without_card_raises():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports with `jax`, the
-    JAX package, PIL, cv2, scikit-learn, the root scripts main.py and
-    albedo_eval.py (which import the JAX package), depth_tools/ and
-    scripts/ blocked; no import statement names any of them.  (The card
+    """Every module of the port (bench.py among them), and chip_smoke.py,
+    imports with `jax`, the JAX package, PIL, cv2, scikit-learn, the root
+    scripts main.py, albedo_eval.py and bench.py (which import the JAX
+    package), depth_tools/ and scripts/ blocked; no import statement names
+    any of them.  (The card
     machine has no PIL, cv2 or scikit-learn; the optional `lpips` package
     stays a guarded import.)"""
     blocked = ("'jax', 'mirres_restir_nerf_mesh_tpu', 'PIL', 'cv2', 'sklearn', 'main', "
-               "'albedo_eval', 'depth_tools', 'scripts', 'dpt_jax', 'extract_depth'")
+               "'albedo_eval', 'bench', 'depth_tools', 'scripts', 'dpt_jax', 'extract_depth'")
     code = (
         "import sys, pkgutil, importlib\n"
         f"for m in ({blocked}):\n"
         "    sys.modules[m] = None\n"
         "import mirres_restir_nerf_mesh_torch as p\n"
+        "import mirres_restir_nerf_mesh_torch.bench\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
@@ -161,7 +163,7 @@ def test_port_imports_no_jax():
     import re
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|mirres_restir_nerf_mesh_tpu|PIL|cv2|sklearn|main|"
-                     r"albedo_eval|depth_tools|scripts|dpt_jax|extract_depth)\b", re.M)
+                     r"albedo_eval|bench|depth_tools|scripts|dpt_jax|extract_depth)\b", re.M)
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "mirres_restir_nerf_mesh_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
