@@ -1,0 +1,10 @@
+"""march_ms.<cell>: wall milliseconds a step inside the program's
+``march`` ranges (render/volume.py) in the profiled stretch."""
+
+
+def read(name, ctx):
+    p = ctx.profile
+    if p is None:
+        return None
+    sec = p.range_seconds(lambda n: n == "march")
+    return 1e3 * sec / ctx.profiled_steps if sec > 0 else None

@@ -1,0 +1,1 @@
+"""Frozen copy (see benchmark/reference/frozen/__init__.py)."""
