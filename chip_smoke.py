@@ -1099,7 +1099,6 @@ def k3_route(seed: int, dev) -> None:
     call (mean of 5) and in one frame of each.  One JSON line each."""
     import torch
 
-    from mirres_restir_nerf_mesh_torch.ops import dense_tracer as dt
     from mirres_restir_nerf_mesh_torch.ops import tile_tracer as tt
     from mirres_restir_nerf_mesh_torch.ops.cluster_bvh import build_clusters
     from mirres_restir_nerf_mesh_torch.render.stage1 import render_stage1
@@ -1139,12 +1138,10 @@ def k3_route(seed: int, dev) -> None:
                         > 1e-4).sum())
         routes.append((route, dict(shape=name, rays=int(o.shape[0]), live=live,
                                    route_ms=cuda_ms(route, 10), route_device_ms=queued_ms(route))))
-    counters = [c for c in (getattr(dt, "dense_hit", None), getattr(dt, "dense_occluded", None))
-                if c is not None]
+    zero_counts, read_counts = make_counters()
     frames = {}
     for name, st in statics.items():
-        for c in counters:
-            c.launches = 0
+        zero_counts()
         times = []
         for _ in range(1 + TIMED_FRAMES):
             torch.cuda.synchronize()
@@ -1154,8 +1151,8 @@ def k3_route(seed: int, dev) -> None:
             times.append(time.perf_counter() - t0)
         frames[name] = dict(frame=name, frame_s=float(statistics.median(times[1:])),
                             frame_s_all=times,
-                            launches_per_frame={c.__name__: c.launches / len(times)
-                                                for c in counters})
+                            launches_per_frame={k: read_counts()[k] / len(times)
+                                                for k in ("dense_hit", "dense_occluded")})
     for route, row in routes:
         prof = profile_run(lambda: [route() for _ in range(5)], None, (), "")
         row["dense_device_ms_per_call"] = prof["dense_kernels_device_ms"] / 5

@@ -126,18 +126,20 @@ def card_line() -> str:
 
 
 def make_counters():
-    """The launch counters of every kernel wrapper -> (zero, read)."""
-    from .ops import dense_tracer, scatter, tile_tracer
+    """The launches of every kernel wrapper since the last zero(), from the
+    registry's ``launches.<wrapper>`` counters -> (zero, read)."""
+    from .utils.profiling import counters
 
-    counters = (tile_tracer.queue_trace, tile_tracer.grid_trace, dense_tracer.dense_hit,
-                dense_tracer.dense_occluded, scatter.scatter_add)
+    names = ("queue_trace", "grid_trace", "dense_hit", "dense_occluded", "scatter_add")
+    start: dict = {}
 
     def zero():
-        for c in counters:
-            c.launches = 0
+        start.clear()
+        start.update(counters())
 
     def read():
-        return {c.__name__: c.launches for c in counters}
+        now = counters()
+        return {n: now.get(f"launches.{n}", 0) - start.get(f"launches.{n}", 0) for n in names}
 
     return zero, read
 

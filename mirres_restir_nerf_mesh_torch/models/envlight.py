@@ -23,6 +23,7 @@ import torch
 
 from ..device import resolve_device
 from ..utils.math import luminance
+from ..utils.profiling import count_sync
 
 
 def init_envlight(h: int = 256, w: int = 512, bias: float = 0.5, device="cuda") -> torch.Tensor:
@@ -112,6 +113,7 @@ def build_sampler(tex: torch.Tensor, m: int = 65536) -> EnvSampler:
     cdf = torch.cumsum(p, dim=0)
     qs = (torch.arange(m, dtype=torch.float32, device=dev) + 0.5) / m
     table = torch.clamp(torch.searchsorted(cdf, qs, right=True), 0, H * W - 1)
+    count_sync("env_bincount", table.is_cuda, 2)      # its min and max
     cnt = torch.bincount(table, minlength=H * W).to(torch.float32)
     omega = (2 * math.pi / W) * (math.pi / H) * sin_t[:, None]
     pdf = (cnt.reshape(H, W) / m) / torch.clamp_min(omega, 1e-12)

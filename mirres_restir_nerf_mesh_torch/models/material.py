@@ -12,6 +12,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.hashgrid import HashGridSpec, hashgrid_encode, init_hashgrid
+from ..utils.profiling import count_sync
 
 
 @dataclass(frozen=True)
@@ -55,6 +56,7 @@ def sample_material(params: Dict[str, Any], x: torch.Tensor, spec: MaterialSpec,
     h = torch.relu(h.to(dt) @ params["net"][0].to(dt))
     h = (h @ params["net"][1].to(dt)).to(torch.float32)
     s = torch.sigmoid(h)
+    count_sync("material_range", x.is_cuda, 2)
     mn = torch.tensor(spec.min_vals, dtype=torch.float32, device=x.device)
     mx = torch.tensor(spec.max_vals, dtype=torch.float32, device=x.device)
     return mn + (mx - mn) * s

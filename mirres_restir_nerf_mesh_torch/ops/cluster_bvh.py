@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.math import cross
+from ..utils.profiling import count_upload
 from .bvh import HitResult
 from .morton import morton3d
 
@@ -166,6 +167,7 @@ def intersect_clusters(cm: ClusterMesh, rays_o: torch.Tensor, rays_d: torch.Tens
     N = rays_o.shape[0]
     C, S = cm.prim.shape
     dev = rays_o.device
+    count_upload("t_max", dev, t_max)
     t_max_arr = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev), (N,))
     if C * S <= dense_threshold or C == 1:
         return _intersect_dense(cm, rays_o, rays_d, t_min, t_max_arr)

@@ -26,6 +26,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..utils.math import cross
+from ..utils.profiling import count, count_upload
 from .bvh import HitResult
 
 BM = 512      # triangle padding granularity of the [16, M] table
@@ -327,13 +328,10 @@ def dense_hit(tris: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor,
         check(_kernels()[0](tris.data_ptr(), ld, M, vec, rays_o.data_ptr(), rays_d.data_ptr(),
                             N, t_min, split, out.data_ptr(), keys.data_ptr(),
                             stream_ptr(dev)), "dense_hit")
-        dense_hit.launches += 1
+        count("launches.dense_hit")
     elif N:
         out[0], out[1], out[2:] = BIG, -1.0, 0.0
     return out[0], out[1].to(torch.int64), out[2], out[3]
-
-
-dense_hit.launches = 0
 
 
 def dense_occluded(tris: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor, t_max,
@@ -343,6 +341,7 @@ def dense_occluded(tris: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tenso
     into ``split`` parts (None: ``split_factor`` of the SM count)."""
     rays_o, rays_d = _prepare("dense_occluded", tris, rays_o, rays_d)
     N = rays_o.shape[0]
+    count_upload("t_max", tris.device, t_max)
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=tris.device),
                                (N,)).contiguous()
     if not tris.is_cuda:
@@ -357,11 +356,8 @@ def dense_occluded(tris: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tenso
         check(_kernels()[1](tris.data_ptr(), ld, M, vec, rays_o.data_ptr(), rays_d.data_ptr(),
                             t_max.data_ptr(), N, t_min, split, occ.data_ptr(),
                             stream_ptr(dev)), "dense_occluded")
-        dense_occluded.launches += 1
+        count("launches.dense_occluded")
     return occ.bool()
-
-
-dense_occluded.launches = 0
 
 
 def dense_intersect(verts: torch.Tensor, tris: torch.Tensor, rays_o: torch.Tensor,
@@ -373,6 +369,7 @@ def dense_intersect(verts: torch.Tensor, tris: torch.Tensor, rays_o: torch.Tenso
     come from one row gather of the packed table."""
     cm = pack_tris_cm(verts, tris)
     best_t, best_lin, u, v = dense_hit(cm, rays_o, rays_d, t_min=t_min, split=split)
+    count_upload("t_max", best_t.device, t_max)
     t_max_arr = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
                                                    device=best_t.device), best_t.shape)
     miss = (best_t >= torch.clamp_max(t_max_arr, BIG * 0.5)) | (best_lin < 0)

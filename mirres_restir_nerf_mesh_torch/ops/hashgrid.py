@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import count_upload
 from .scatter import scatter_add
 
 PRIMES = (1, 2654435761, 805459861)
@@ -146,6 +147,7 @@ def encode_rows(x: torch.Tensor, spec: HashGridSpec, bound: float = 1.0,
     x01 = (x + bound) / (2.0 * bound)
     x01 = torch.minimum(torch.maximum(x01, x01.new_zeros(())), x01.new_ones(()))
     offsets, scales, resolutions, dense = spec.level_meta()
+    count_upload("hashgrid_corners", x.device)
     corners = torch.as_tensor(CORNERS, device=x.device)                 # [8,3]
     cmask = corners == 1
     corners_zyx = corners.flip(1)
@@ -189,6 +191,7 @@ def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpe
         feats = torch.sum(vals.reshape(N, L, 8, C) * w[..., None], dim=2)
     if max_level is not None:
         lvl = torch.arange(L, device=x.device)
+        count_upload("max_level", x.device, max_level)
         feats = feats * (lvl < torch.as_tensor(max_level, device=x.device)).to(feats.dtype)[:, None]
     return feats.reshape(N, L * C)
 
@@ -204,6 +207,7 @@ def hashgrid_tv_loss(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSp
     x = x[:max_points]
     x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
     offsets, scales, resolutions, dense = spec.level_meta()
+    count_upload("tv_steps", x.device)
     steps = torch.tensor([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], device=x.device)
     cols = []
     for lvl in range(spec.num_levels):

@@ -26,6 +26,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import count_sync
+
 SQRT3 = math.sqrt(3.0)
 
 
@@ -161,6 +163,9 @@ def composite_rays(sigmas: torch.Tensor, rgbs: torch.Tensor, ts: torch.Tensor, d
         alpha = 1.0 - torch.exp(-sigmas * dts)
     alpha = torch.where(valid, alpha, 0.0)
     one_minus = 1.0 - alpha
+    # cumprod's backward tests its input for zeros on the host (more syncs
+    # where one is 0: an alpha of exactly 1)
+    count_sync("composite_backward", one_minus.is_cuda and one_minus.requires_grad)
     T = torch.cumprod(torch.cat([torch.ones_like(one_minus[:, :1]), one_minus[:, :-1]], dim=-1),
                       dim=-1)
     w = torch.where(T >= T_thresh, alpha * T, 0.0)

@@ -15,6 +15,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import count_upload
 
 
 class OccupancyState(NamedTuple):
@@ -57,6 +58,7 @@ def draw_occupancy(state: OccupancyState, bound: float, stochastic: bool,
     """OccupancyDraws of one update from ``generator``."""
     C, H = state.density_grid.shape[0], state.density_grid.shape[1]
     dev = state.density_grid.device
+    count_upload("occ_half_cells", dev)
     half = torch.tensor(_half_cells(C, H, bound), device=dev)[:, None, None]
     u = torch.rand((C, H ** 3, 3), generator=generator, device=dev)
     su = torch.rand((H ** 3, 3), generator=generator, device=dev) if stochastic else None

@@ -19,6 +19,7 @@ import functools
 import torch
 
 from ..cuda_build import check, stream_ptr
+from ..utils.profiling import count
 
 _VP = ctypes.c_void_p
 
@@ -103,8 +104,5 @@ def scatter_add(idx: torch.Tensor, upd: torch.Tensor, table_rows: int) -> torch.
     out = torch.zeros((table_rows, upd.shape[-1]), dtype=torch.float32, device=upd.device)
     if idx.numel() and table_rows:
         scatter_add_into(out, idx, upd)
-        scatter_add.launches += 1
+        count("launches.scatter_add")
     return out
-
-
-scatter_add.launches = 0

@@ -26,8 +26,8 @@ import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
+from ..utils.profiling import count, count_sync, count_upload, span
 from .bvh import HitResult
 from .cluster_bvh import SC_GROUP, ClusterMesh, _finish, _intersect_dense, _occluded_dense
 from .morton import morton3d
@@ -173,6 +173,7 @@ def _octant_candidates_blocked(cm: ClusterMesh, rot, rdt, tmt, t_min: float, k_f
     outs = []
     for b in range(nb):
         sl = slice(b * tb, (b + 1) * tb)
+        count_sync("octant_blocks", tmt.is_cuda)
         if bool((tmt[sl] > 0.0).any()):
             outs.append(_octant_candidates(cm, rot[sl], rdt[sl], tmt[sl], t_min, k_flat))
         else:
@@ -196,7 +197,9 @@ def _queue_budget(counts, dropped, entries, q_avg: int):
     counts_q = torch.clamp_min(counts, 1)
     caps = torch.arange(1, K + 1, device=dev)
     fits = torch.minimum(counts_q[:, None], caps[None, :]).sum(dim=0) <= W_cap
-    cap = int(fits.sum()) if bool(fits.any()) else 1
+    any_fit = bool(fits.any())
+    cap = int(fits.sum()) if any_fit else 1
+    count_sync("queue_budget", fits.is_cuda, 2 if any_fit else 1)
     counts_adj = torch.clamp_max(counts_q, max(cap, 1))
     trunc = counts_adj < counts
     ent_at_cut = torch.gather(entries, 1, torch.clamp(counts_adj, 0, K - 1)[:, None])[:, 0]
@@ -413,11 +416,8 @@ def queue_trace(geom_cm, rays_cm, cand, octs, n_active, t_min: float, any_hit: b
         return queue_trace_plain(geom_cm, rays_cm, cand, octs, n_active, t_min, any_hit)
     out = _launch("queue_trace", geom_cm, rays_cm, cand, octs, n_active, t_min, any_hit, split)
     if rays_cm.shape[0]:
-        queue_trace.launches += 1
+        count("launches.queue_trace")
     return out
-
-
-queue_trace.launches = 0
 
 
 def grid_trace(geom_cm, rays_cm, cand, octs, counts, t_min: float, any_hit: bool,
@@ -429,11 +429,8 @@ def grid_trace(geom_cm, rays_cm, cand, octs, counts, t_min: float, any_hit: bool
         return queue_trace_plain(geom_cm, rays_cm, cand, octs, counts, t_min, any_hit)
     out = _launch("grid_trace", geom_cm, rays_cm, cand, octs, counts, t_min, any_hit, split)
     if rays_cm.shape[0]:
-        grid_trace.launches += 1
+        count("launches.grid_trace")
     return out
-
-
-grid_trace.launches = 0
 
 
 class TileTraceOut(NamedTuple):
@@ -454,6 +451,7 @@ class TraceWork(NamedTuple):
 
 
 def _t_max_array(t_max, N: int, device) -> torch.Tensor:
+    count_upload("t_max", device, t_max)
     return torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=device), (N,))
 
 
@@ -573,14 +571,14 @@ def tile_trace(cm: ClusterMesh, rays_o, rays_d, t_min: float = 1e-4, t_max=1e10,
     "morton" or "morton_dir2" ray reorders; results come back unpermuted.
     queue: the work budget of queue_avg candidates per tile on average and
     K1; queue=False runs every tile's k_cap-cut candidates through K2."""
-    with record_function("tile_prep"):
+    with span("tile_prep"):
         work = prepare_trace(cm, rays_o, rays_d, t_min=t_min, t_max=t_max, k_cap=k_cap,
                              tile=tile, sort_octants=sort_octants, sort_block=sort_block,
                              queue=queue, queue_avg=queue_avg)
-    with record_function("tile_kernel"):
+    with span("tile_kernel"):
         run = queue_trace if queue else grid_trace
         out = run(cm.geom_cm, work.rays_cm, work.cand, work.octs, work.n_active, t_min, any_hit)
-    with record_function("tile_finish"):
+    with span("tile_finish"):
         return finish_trace(cm, work, out, any_hit)
 
 

@@ -13,6 +13,7 @@ import torch
 
 from ..ops.tracer import Tracer
 from ..utils.math import cross, safe_normalize
+from ..utils.profiling import count_upload
 
 
 def auto_normals(verts: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:
@@ -28,6 +29,7 @@ def auto_normals(verts: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:
     for k in range(3):
         vn = vn.index_put((t[:, k],), fn, accumulate=True)
     bad = torch.sum(vn * vn, dim=-1, keepdim=True) < 1e-20
+    count_upload("gbuffer_up", verts.device)
     vn = torch.where(bad, torch.tensor([0.0, 0.0, 1.0], device=verts.device), vn)
     return safe_normalize(vn)
 

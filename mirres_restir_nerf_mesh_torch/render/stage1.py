@@ -39,7 +39,6 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..models import envlight
 from ..models import material as material_mod
@@ -47,6 +46,7 @@ from ..models import nerf as nerf_model
 from ..ops.tracer import build_tracer
 from ..parallel import mesh as pmesh
 from ..utils.compact import apply_in_chunks, masked_apply
+from ..utils.profiling import count_sync, span
 from . import pathtracer
 from . import restir as restir_mod
 from .gbuffer import prepare_shading_normal, raycast_gbuffer
@@ -290,7 +290,7 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
         k_cap=static.k_cap, k_cap_incoherent=static.k_cap_incoherent, tile=static.ray_tile,
         queue_avg=static.queue_avg, queue_avg_incoherent=static.queue_avg_incoherent,
     )
-    with record_function("gbuffer"):
+    with span("gbuffer"):
         gb = raycast_gbuffer(verts, tris, tracer, rays_o, rays_d)
     normal = prepare_shading_normal(gb.view_dir, gb.normal, gb.face_normal)
 
@@ -304,7 +304,7 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
         npts = pos if static.enable_offset_nerf_grad else pos.detach()
         return m, m_j, nerf_model.rgb_only(params.nerf, npts, vdir, static.nerf_spec)
 
-    with record_function("fields"):
+    with span("fields"):
         mat, mat_j, nerf_rgb = mapply(field_queries, gb.mask, (xyzs, xyzs_j, gb.view_dir),
                                       fills=(0.5, 0.5, 0.0))
     kd, rough, metal = material_mod.split_material(mat)
@@ -344,7 +344,7 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
                                   view_dir=gb.view_dir, kd=kd_shade.detach(),
                                   roughness=rough.detach(), metallic=metal.detach(),
                                   mask=gb.mask, depth=gb.depth.detach())
-        with record_function("restir_initial"):
+        with span("restir_initial"):
             res0_b = _initial_ris(static, rand, ctx, tile_spp, env_tex.detach(), env_dist,
                                   mapply)
 
@@ -366,7 +366,7 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
     if res0_b is not None:
         ind_args += (tile_spp(ctx.position + ctx.normal * 1e-4), res0_b.dir,
                      torch.where(res0_b.valid, 1e9, 0.0))
-    with record_function("indirect"):
+    with span("indirect"):
         outs = mapply(indirect_fn, mask_b, ind_args, fills=(0.0, 0.0))
     sum_i = outs[0].reshape(SPP, P, 3).sum(dim=0)
 
@@ -406,7 +406,7 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
         def to2d(x):
             return x.reshape(H, W, -1)
 
-        with record_function("denoise"):
+        with span("denoise"):
             dif_f, spec_f, ind_f = full_frame(band, diffuse_light, specular_light,
                                               indirect.detach())
             n2, p2, m2 = to2d(nrm_f), to2d(pos_f), mask_f.reshape(H, W)
@@ -436,7 +436,7 @@ def render_stage1(params: Stage1Params, static: Stage1Static, base_verts: torch.
         from .antialias import antialias as aa_fn
 
         names = ("image", "image_brdf", "diffuse_light", "specular_light", "img_brdf_indirect")
-        with record_function("antialias"):
+        with span("antialias"):
             *vals, m_all, v0, v1, v2, o_all, d_all = full_frame(
                 band, image, image_brdf, diffuse_light, specular_light, indirect.detach(),
                 gb.mask, gb.tri_v0, gb.tri_v1, gb.tri_v2, rays_o, gb.view_dir)
@@ -496,7 +496,7 @@ def _direct_mis(static, rand, gb, xyzs, normal, kd_shade, rough, metal, env_tex,
     sum_d = torch.zeros((P, 3), device=gb.mask.device)
     sum_s = torch.zeros((P, 3), device=gb.mask.device)
     for s in range(static.spp):
-        with record_function("direct"):
+        with span("direct"):
             diff_s, spec_s = mapply(
                 direct_fn, gb.mask,
                 (xyzs.detach(), normal.detach(), gb.view_dir, gb.mask, kd_shade.detach(),
@@ -551,6 +551,7 @@ def _restir_chain(static, rand, ctx, res_b, tracer, env_tex, normal, kd_shade, r
     dev = ctx.mask.device
     P_rule = P if band is None else band.n
     if static.compact_chunks > 1 and P_rule % static.compact_chunks == 0:
+        count_sync("restir_live", ctx.mask.is_cuda)
         live = torch.nonzero(ctx.mask)[:, 0]
     else:
         live = torch.arange(P, device=dev)
@@ -569,7 +570,7 @@ def _restir_chain(static, rand, ctx, res_b, tracer, env_tex, normal, kd_shade, r
     for s in range(SPP):
         res = restir_mod.Reservoir(*(a[s][live] for a in res_all))
         sp_rand = (rand.spatial_start[s][live], rand.spatial_us[s][:, live])
-        with record_function("restir_temporal"):
+        with span("restir_temporal"):
             kw = dict(v_curr=ones, v_prev=prev_vis) if thread_vis else {}
             out = restir_mod.temporal_resampling(pctx, res, prev_res, pctx.normal, pctx.depth,
                                                  env_ng, rand.temporal_u[s][live],
@@ -578,12 +579,12 @@ def _restir_chain(static, rand, ctx, res_b, tracer, env_tex, normal, kd_shade, r
             rec = restir_mod.pack_spatial_record(pctx, res, v_self, env_tex=env_ng)
             packed = torch.zeros((P, rec.shape[1]), device=dev).index_put((live,), rec)
             packed, = full_frame(band, packed)
-        with record_function("restir_spatial"):
+        with span("restir_spatial"):
             out = restir_mod.spatial_resampling(
                 pctx, res, env_ng, static.H, static.W, offsets, sp_rand, tracer=tracer,
                 n_neighbors=static.restir_neighbors, unbiased=thread_vis, v_self=v_self,
                 packed=packed, pix_idx=live if band is None else live + band.lo)
-        with record_function("restir_final"):
+        with span("restir_final"):
             if thread_vis:
                 res, final_vis = out
                 prev_res, prev_vis = res, final_vis

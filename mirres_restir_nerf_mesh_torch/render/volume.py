@@ -20,13 +20,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..models import nerf as nerf_model
 from ..ops.marching import composite_rays, march_rays, near_far_from_aabb
 from ..parallel.mesh import Shard, all_gather_rows
 from ..utils.compact import apply_in_chunks
 from ..utils.math import safe_normalize
+from ..utils.profiling import span
 
 
 def field_points(N: int, K: int, compact_points: Optional[int] = None, sdf: bool = False) -> int:
@@ -58,7 +58,7 @@ def render_rays(params: Dict[str, Any], occ: torch.Tensor, rays_o: torch.Tensor,
     if cam_near_far is not None:
         nears = torch.maximum(nears, cam_near_far[:, 0])
         fars = torch.minimum(fars, cam_near_far[:, 1])
-    with torch.no_grad(), record_function("march"):
+    with torch.no_grad(), span("march"):
         m = march_rays(rays_o, rays_d, occ, nears, fars, bound=spec.bound, K=K,
                        max_steps=max_steps, dt_gamma=dt_gamma, noise=noise, contract=contract,
                        n_candidates=march_candidates)
@@ -90,7 +90,7 @@ def render_rays(params: Dict[str, Any], occ: torch.Tensor, rays_o: torch.Tensor,
         stochastic_u = stochastic_u[shard.lo * Kk:shard.hi * Kk]
     su = () if stochastic_u is None else (stochastic_u,)
     alpha_mode = spec.sdf
-    with record_function("field"):
+    with span("field"):
         if spec.sdf:
             sdf, rgbs, raw_normal, alphas = chunked(sdf_eval, pts, dirs, m.dts.reshape(-1))
             sig_for_comp = alphas.reshape(N, Kk)
@@ -114,7 +114,7 @@ def render_rays(params: Dict[str, Any], occ: torch.Tensor, rays_o: torch.Tensor,
         else:
             sigmas, rgbs = chunked(field, pts, dirs, *su)
             sig_for_comp = sigmas.reshape(N, Kk)
-    with record_function("composite"):
+    with span("composite"):
         comp = composite_rays(sig_for_comp, rgbs.reshape(N, Kk, 3), m.ts, m.dts, m.valid,
                               T_thresh=T_thresh, alpha_mode=alpha_mode)
     bg = (torch.ones((1, 3), device=rays_o.device) if bg_color is None

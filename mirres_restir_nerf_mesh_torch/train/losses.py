@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..utils.math import cross, linear_to_srgb
+from ..utils.profiling import count_upload
 
 
 class MeshTopology(NamedTuple):
@@ -42,6 +43,7 @@ def build_topology(tris: np.ndarray, num_verts: int) -> MeshTopology:
 
 
 def _t(a: np.ndarray, like: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
+    count_upload("topology", like.device)
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=like.device)
 
 

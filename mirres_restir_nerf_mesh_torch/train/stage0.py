@@ -41,6 +41,7 @@ from ..ops.occupancy import (OccupancyDraws, OccupancyState, draw_occupancy, ini
 from ..parallel.mesh import (DataParallel, Shard, all_gather_rows, all_reduce_grads,
                              all_reduce_scalars, global_mean, shard_of, shard_rows)
 from ..render.volume import field_points, render_rays
+from ..utils.profiling import count, count_sync, count_upload, span
 
 B1, B2 = 0.9, 0.999
 TV_POINTS = 4096             # hashgrid_tv_loss's points: the batch's first marched samples
@@ -214,6 +215,7 @@ def init_state(generator: Optional[torch.Generator], cfg: Config, spec: nerf_mod
 def _aabb(cfg: Config, device) -> torch.Tensor:
     b = cfg.bound
     box = cfg.scene_aabb if cfg.scene_aabb is not None else (-b, -b, -b, b, b, b)
+    count_upload("aabb", device)
     return torch.tensor(box, dtype=torch.float32, device=device)
 
 
@@ -232,6 +234,7 @@ def march_candidates_for(cfg: Config, sampler) -> Optional[int]:
     span = 0.0
     for i in range(data.num_frames):
         f = sampler.frame_rays(i)
+        count_sync("march_candidates", f["rays_o"].is_cuda, 2)
         ro = f["rays_o"].cpu().numpy().astype(np.float32)
         rd = f["rays_d"].cpu().numpy().astype(np.float32)
         inv = 1.0 / np.where(np.abs(rd) < 1e-15, 1e-15, rd)
@@ -314,10 +317,12 @@ def loss_and_grads(params: Any, occ: torch.Tensor, batch: Dict[str, torch.Tensor
     With ``shard``: this rank's part of the gradient (1/R of the loss
     back-propagated), to be summed over the ranks (``all_reduce_grads``)."""
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
-    loss, aux = stage0_loss(tree_unflatten(params, iter(leaves)), occ, batch, rand, cfg, spec,
-                            step, march_candidates, shard)
+    with span("forward"):
+        loss, aux = stage0_loss(tree_unflatten(params, iter(leaves)), occ, batch, rand, cfg,
+                                spec, step, march_candidates, shard)
     scaled = loss if shard is None else loss / shard.dp.world
-    grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
+    with span("backward"):
+        grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
     return loss.detach(), aux, list(grads)
 
 
@@ -335,21 +340,25 @@ def make_train_step(cfg: Config, spec: nerf_model.NeRFSpec, sampler,
 
     def train_step(state: TrainState, generator: Optional[torch.Generator] = None,
                    rand: Optional[Stage0Randoms] = None) -> Tuple[TrainState, Dict[str, Any]]:
+        count("steps.stage0")
         if rand is None:
             rand = draw_stage0_randoms(sampler, cfg, n_march, generator)
         shard = None
         if dp is not None:
             shard = shard_of(rand.noise.shape[0], dp)
             rand = shard_stage0_randoms(rand, shard)
-        batch = sampler.sample(rand.sample)
+        with span("batch"):
+            batch = sampler.sample(rand.sample)
         _, aux, grads = loss_and_grads(state.params, state.occ.occ, batch, rand, cfg, spec,
                                        int(state.step), n_march, shard)
         if dp is not None:
-            grads = all_reduce_grads(grads, tree_leaves(state.params), dp)
-        params, opt_state = opt.step(state.params, grads, state.opt_state)
-        with torch.no_grad():
-            ema = tree_unflatten(params, iter([0.95 * e + 0.05 * p for e, p in zip(
-                tree_leaves(state.ema_params), tree_leaves(params))]))
+            with span("allreduce"):
+                grads = all_reduce_grads(grads, tree_leaves(state.params), dp)
+        with span("optimizer"):
+            params, opt_state = opt.step(state.params, grads, state.opt_state)
+            with torch.no_grad():
+                ema = tree_unflatten(params, iter([0.95 * e + 0.05 * p for e, p in zip(
+                    tree_leaves(state.ema_params), tree_leaves(params))]))
         return TrainState(params, opt_state, ema, state.occ, state.step + 1), aux
 
     train_step.march_candidates = n_march
@@ -390,9 +399,6 @@ def make_occ_update(cfg: Config, spec: nerf_model.NeRFSpec):
     @torch.no_grad()
     def occ_update(state: TrainState, generator: Optional[torch.Generator] = None,
                    draws: Optional[OccupancyDraws] = None) -> TrainState:
-        if draws is None:
-            draws = draw_occupancy(state.occ, cfg.bound, cfg.stochastic_interp, generator)
-
         def density_fn(pts, u):
             sig = nerf_model.density(state.params, pts, spec,
                                      stochastic_u=u if cfg.stochastic_interp else None)["sigma"]
@@ -401,7 +407,10 @@ def make_occ_update(cfg: Config, spec: nerf_model.NeRFSpec):
                 sig = torch.sigmoid(-sig * inv_s) * inv_s
             return sig
 
-        occ = update_occupancy(state.occ, density_fn, draws, cfg.bound, cfg.density_thresh)
+        with span("occ_update"):
+            if draws is None:
+                draws = draw_occupancy(state.occ, cfg.bound, cfg.stochastic_interp, generator)
+            occ = update_occupancy(state.occ, density_fn, draws, cfg.bound, cfg.density_thresh)
         return state._replace(occ=occ)
 
     return occ_update

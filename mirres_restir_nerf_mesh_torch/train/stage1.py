@@ -50,6 +50,7 @@ from ..models import material as material_mod
 from ..parallel import mesh as pmesh
 from ..render.stage1 import (FrameRandoms, Stage1Params, Stage1Static, frame_band, full_frame,
                              render_stage1)
+from ..utils.profiling import count, span
 from . import losses as L
 from .stage0 import AdamState, adam_init, adam_update, lr_schedule, tree_leaves, tree_unflatten
 
@@ -240,11 +241,13 @@ def loss_and_grads(params: Stage1Params, static: Stage1Static, base_verts: torch
     summed over the ranks."""
     groups = {g: [x.detach().requires_grad_(True) for x in leaves]
               for g, leaves in group_leaves(params).items()}
-    loss, aux = stage1_loss(params_from_groups(params, groups), static, base_verts, topo, batch,
-                            cfg, generator, rand)
+    with span("forward"):
+        loss, aux = stage1_loss(params_from_groups(params, groups), static, base_verts, topo,
+                                batch, cfg, generator, rand)
     scaled = loss if static.dp is None else loss / static.dp.world
-    got = iter(torch.autograd.grad(scaled, [x for g in GROUPS for x in groups[g]],
-                                   allow_unused=True))
+    with span("backward"):
+        got = iter(torch.autograd.grad(scaled, [x for g in GROUPS for x in groups[g]],
+                                       allow_unused=True))
     return loss.detach(), aux, {g: [next(got) for _ in groups[g]] for g in GROUPS}
 
 
@@ -266,19 +269,22 @@ def make_train_step(cfg: Config, static: Stage1Static, base_verts, topo: L.MeshT
     def train_step(state: Stage1State, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
                    rand: Optional[FrameRandoms] = None) -> Tuple[Stage1State, Dict[str, Any]]:
+        count("steps.stage1")
         bv = torch.as_tensor(base_verts, device=batch["rays_o"].device)
         if static.dp is not None:
             batch = band_batch(batch, static)
         _, aux, grads = loss_and_grads(state.params, static, bv, topo, batch, cfg, generator,
                                        rand)
         if static.dp is not None:
-            leaves = group_leaves(state.params)
-            flat = pmesh.all_reduce_grads([x for g in GROUPS for x in grads[g]],
-                                          [x for g in GROUPS for x in leaves[g]], static.dp)
-            it = iter(flat)
-            grads = {g: [next(it) for _ in leaves[g]] for g in GROUPS}
-        new_params, opt_state = opt.step(state.params, grads, state.opt_state)
-        new_params = new_params._replace(env=torch.clamp_min(new_params.env, 0.01))
+            with span("allreduce"):
+                leaves = group_leaves(state.params)
+                flat = pmesh.all_reduce_grads([x for g in GROUPS for x in grads[g]],
+                                              [x for g in GROUPS for x in leaves[g]], static.dp)
+                it = iter(flat)
+                grads = {g: [next(it) for _ in leaves[g]] for g in GROUPS}
+        with span("optimizer"):
+            new_params, opt_state = opt.step(state.params, grads, state.opt_state)
+            new_params = new_params._replace(env=torch.clamp_min(new_params.env, 0.01))
         return Stage1State(new_params, opt_state, state.step + 1), aux
 
     return train_step

@@ -44,7 +44,7 @@ from ..models.nerf import NeRFSpec
 from ..ops.occupancy import OccupancyDraws, draw_occupancy
 from ..parallel import mesh as pmesh
 from ..render.stage1 import FrameRandoms, Stage1Static, draw_frame_randoms, render_stage1
-from ..utils.profiling import MetricsWriter
+from ..utils.profiling import MetricsWriter, count_sync, counters, rates, span
 from . import checkpoint as ckpt
 from . import stage0, stage1
 from .losses import build_topology
@@ -136,17 +136,20 @@ class Trainer:
 
     def _stage0_randoms(self) -> stage0.Stage0Randoms:
         """The draws of one stage-0 step."""
-        return stage0.draw_stage0_randoms(self.sampler, self.cfg, self.train_step.march_candidates,
-                                          self.generator)
+        with span("randoms"):
+            return stage0.draw_stage0_randoms(self.sampler, self.cfg,
+                                              self.train_step.march_candidates, self.generator)
 
     def _occupancy_draws(self) -> OccupancyDraws:
         """The draws of one occupancy update."""
-        return draw_occupancy(self.state.occ, self.cfg.bound, self.cfg.stochastic_interp,
-                              self.generator)
+        with span("occ_draws"):
+            return draw_occupancy(self.state.occ, self.cfg.bound, self.cfg.stochastic_interp,
+                                  self.generator)
 
     def _frame_randoms(self, P: int, static: Stage1Static) -> FrameRandoms:
         """The draws of one stage-1 frame of P pixels."""
-        return draw_frame_randoms(P, static, self.generator, self.device)
+        with span("randoms"):
+            return draw_frame_randoms(P, static, self.generator, self.device)
 
     # ------------------------------------------------------------- stage 1 init
     def _init_stage1(self) -> None:
@@ -273,6 +276,7 @@ class Trainer:
         save_every = max(steps // max(cfg.n_ckpt, 1), 1)
         t0 = time.time()
         last: Dict[str, float] = {}
+        logged = counters()
 
         start = self.global_step
         for i in range(start, steps):
@@ -286,6 +290,7 @@ class Trainer:
                 rand = self._frame_randoms(batch["rays_o"].shape[0], self.static)
                 self.state, aux = self.train_step(self.state, batch, rand=rand)
                 if cfg.refine:
+                    count_sync("refine", self.device.type == "cuda", 2)
                     self._face_err_acc += aux["face_err"].cpu().numpy()
                     self._face_cnt_acc += aux["face_cnt"].cpu().numpy()
                     if (i + 1) in cfg.refine_steps:
@@ -293,7 +298,10 @@ class Trainer:
             self.global_step = i + 1
 
             if (i + 1) % 100 == 0 or i == steps - 1:
-                last = {k: float(v) for k, v in aux.items() if getattr(v, "ndim", 0) == 0}
+                scalars = {k: v for k, v in aux.items() if getattr(v, "ndim", 0) == 0}
+                count_sync("log", self.device.type == "cuda",
+                           sum(isinstance(v, torch.Tensor) for v in scalars.values()))
+                last = {k: float(v) for k, v in scalars.items()}
                 if cfg.stage == 0 and cfg.adaptive_num_rays:
                     self._adapt_num_rays(last.get("num_points", 0.0))
                 if last.get("uncertain_count", 0.0) > 0:
@@ -312,8 +320,11 @@ class Trainer:
                 rate = (i + 1 - start) / max(time.time() - t0, 1e-9)
                 self.log(f"[train] step {i+1}/{steps} loss={last.get('loss', 0):.5f} "
                          f"psnr={last.get('psnr', 0):.2f} it/s={rate:.2f}")
+                now = counters()
+                per_step = rates(now, logged, f"steps.stage{cfg.stage}")
+                logged = now
                 if self.is_main:
-                    self.metrics_writer.write(i + 1, it_per_s=rate, **last)
+                    self.metrics_writer.write(i + 1, it_per_s=rate, **last, **per_step)
             if (i + 1) % save_every == 0 or i == steps - 1:
                 self.save_checkpoint()
             if (i + 1) % eval_every == 0:
@@ -378,16 +389,18 @@ class Trainer:
         cfg = self.cfg
         if num_points <= 0:
             return False
-        cap = max(cfg.num_rays, 2 ** 14)
-        desired = cfg.num_rays * cfg.num_points / num_points
-        grew = False
-        while cfg.num_rays * 2 <= min(desired, cap):
-            cfg.num_rays *= 2
-            grew = True
-        if grew:
-            self.log(f"[adaptive] num_points {num_points:.0f}/{cfg.num_points} -> "
-                     f"num_rays {cfg.num_rays} (rebuilding train step)")
-            self.train_step = stage0.make_train_step(cfg, self.nerf_spec, self.sampler, dp=self.dp)
+        with span("adapt_num_rays"):
+            cap = max(cfg.num_rays, 2 ** 14)
+            desired = cfg.num_rays * cfg.num_points / num_points
+            grew = False
+            while cfg.num_rays * 2 <= min(desired, cap):
+                cfg.num_rays *= 2
+                grew = True
+            if grew:
+                self.log(f"[adaptive] num_points {num_points:.0f}/{cfg.num_points} -> "
+                         f"num_rays {cfg.num_rays} (rebuilding train step)")
+                self.train_step = stage0.make_train_step(cfg, self.nerf_spec, self.sampler,
+                                                         dp=self.dp)
         return grew
 
     def _stage1_batch(self, i: int) -> Dict[str, torch.Tensor]:

@@ -15,6 +15,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from .profiling import count_sync
+
 
 def masked_apply(fn: Callable, mask: torch.Tensor, args: Sequence[torch.Tensor],
                  fills: Sequence[float], chunks: int = 4, total_rows: Optional[int] = None):
@@ -26,6 +28,7 @@ def masked_apply(fn: Callable, mask: torch.Tensor, args: Sequence[torch.Tensor],
     P = mask.shape[0]
     if chunks <= 1 or (P if total_rows is None else total_rows) % chunks != 0:
         return fn(*args)
+    count_sync("compact_live", mask.is_cuda)
     live = torch.nonzero(mask)[:, 0]
     outs = fn(*(a[live] for a in args))
     single = not isinstance(outs, tuple)

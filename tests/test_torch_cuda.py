@@ -22,7 +22,7 @@ import torch
 
 from mirres_restir_nerf_mesh_torch.ops import cluster_bvh, dense_tracer, hashgrid, scatter, tile_tracer
 
-from test_torch_helpers import bumpy_sphere, shell_rays
+from test_torch_helpers import bumpy_sphere, launches, shell_rays
 
 pytestmark = pytest.mark.cuda
 
@@ -41,10 +41,10 @@ def test_dense_hit_kernel_matches_plain(dev):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     cm = dense_tracer.pack_tris_cm(torch.from_numpy(v).to(dev), torch.from_numpy(tr).to(dev))
     ro, rd = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
-    before = dense_tracer.dense_hit.launches
+    before = launches("dense_hit")
     k = dense_tracer.dense_hit(cm, ro, rd)
     torch.cuda.synchronize()
-    assert dense_tracer.dense_hit.launches == before + 1
+    assert launches("dense_hit") == before + 1
     p = dense_tracer.dense_hit_plain(cm, ro, rd)
     same = (k[1] == p[1]).float().mean().item()
     assert same >= 0.9999
@@ -82,10 +82,10 @@ def test_dense_hit_kernel_rows_equal_plain(dev, split):
     p = dense_tracer.dense_hit_plain(soa, ro, rd)
     assert int((p[1] >= 0).sum()) > 1000
     for tris in (soa, dense_tracer.tris_cm_from_soa(soa)):
-        before = dense_tracer.dense_hit.launches
+        before = launches("dense_hit")
         k = dense_tracer.dense_hit(tris, ro, rd, split=split)
         torch.cuda.synchronize()
-        assert dense_tracer.dense_hit.launches == before + 1
+        assert launches("dense_hit") == before + 1
         for a, b in zip(k, p):
             assert same_bits(a, b)
 
@@ -95,10 +95,10 @@ def test_dense_occluded_kernel_equals_plain(dev, split):
     soa, ro, rd, tm = dense_case(dev)
     p = dense_tracer.dense_occluded_plain(soa, ro, rd, tm)
     assert p.any() and not p.all()
-    before = dense_tracer.dense_occluded.launches
+    before = launches("dense_occluded")
     k = dense_tracer.dense_occluded(soa, ro, rd, tm, split=split)
     torch.cuda.synchronize()
-    assert dense_tracer.dense_occluded.launches == before + 1
+    assert launches("dense_occluded") == before + 1
     assert torch.equal(k, p)
 
 
@@ -143,11 +143,11 @@ def test_tile_trace_kernel_matches_plain(dev, any_hit):
     o, d = shell_rays(20000, seed=3)
     work = tile_tracer.prepare_trace(cm, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
                                      k_cap=32, sort_octants="morton")
-    before = tile_tracer.queue_trace.launches
+    before = launches("queue_trace")
     out_k = tile_tracer.queue_trace(cm.geom_cm, work.rays_cm, work.cand, work.octs, work.n_active,
                                     1e-4, any_hit)
     torch.cuda.synchronize()
-    assert tile_tracer.queue_trace.launches == before + 1
+    assert launches("queue_trace") == before + 1
     out_p = tile_tracer.queue_trace_plain(cm.geom_cm, work.rays_cm, work.cand, work.octs,
                                           work.n_active, 1e-4, any_hit)
     hk = tile_tracer.finish_trace(cm, work, out_k, any_hit)
@@ -168,11 +168,11 @@ def test_grid_trace_kernel_matches_plain(dev, any_hit):
     work = tile_tracer.prepare_trace(cm, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
                                      k_cap=32, sort_octants="morton", queue=False)
     assert torch.equal(work.n_active, work.counts)
-    before = tile_tracer.grid_trace.launches
+    before = launches("grid_trace")
     out_k = tile_tracer.grid_trace(cm.geom_cm, work.rays_cm, work.cand, work.octs, work.counts,
                                    1e-4, any_hit)
     torch.cuda.synchronize()
-    assert tile_tracer.grid_trace.launches == before + 1
+    assert launches("grid_trace") == before + 1
     out_p = tile_tracer.queue_trace_plain(cm.geom_cm, work.rays_cm, work.cand, work.octs,
                                           work.counts, 1e-4, any_hit)
     hk = tile_tracer.finish_trace(cm, work, out_k, any_hit)
@@ -195,10 +195,10 @@ def test_tile_trace_kernel_split_rows_equal_plain(dev, split, any_hit):
     work = tile_tracer.prepare_trace(cm, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
                                      k_cap=32, sort_octants="morton")
     args = (cm.geom_cm, work.rays_cm, work.cand, work.octs, work.n_active, 1e-4, any_hit)
-    before = tile_tracer.queue_trace.launches
+    before = launches("queue_trace")
     out_k = tile_tracer.queue_trace(*args, split=split)
     torch.cuda.synchronize()
-    assert tile_tracer.queue_trace.launches == before + 1
+    assert launches("queue_trace") == before + 1
     assert torch.equal(out_k, tile_tracer.queue_trace_plain(*args))
 
 
@@ -231,10 +231,10 @@ def test_scatter_add_kernel_2d_entry(dev, cols, C):
     idx[0, 0] = rows + 3
     idx_d = torch.from_numpy(idx).to(dev)
     upd = torch.from_numpy(rng.normal(size=(N, cols, C)).astype(np.float32)).to(dev)
-    before = scatter.scatter_add.launches
+    before = launches("scatter_add")
     k = scatter.scatter_add(idx_d, upd, rows)
     torch.cuda.synchronize()
-    assert scatter.scatter_add.launches == before + 1
+    assert launches("scatter_add") == before + 1
     assert scatter_within(k, idx_d, upd, rows)
     flat = scatter.scatter_add(idx_d.reshape(-1), upd.reshape(-1, C), rows)
     assert scatter_within(flat, idx_d, upd, rows)
@@ -248,10 +248,10 @@ def test_scatter_add_kernel_matches_plain(dev):
     idx[rng.rand(M) < 0.05] = -1                        # padding
     idx_d = torch.from_numpy(idx).to(dev)
     upd = torch.from_numpy(rng.normal(size=(M, 2)).astype(np.float32)).to(dev)
-    before = scatter.scatter_add.launches
+    before = launches("scatter_add")
     k = scatter.scatter_add(idx_d, upd, rows)
     torch.cuda.synchronize()
-    assert scatter.scatter_add.launches == before + 1
+    assert launches("scatter_add") == before + 1
     assert scatter_within(k, idx_d, upd, rows)
 
 
@@ -272,10 +272,10 @@ def test_scatter_add_kernel_stage0_encode_shape(dev):
                                                                    device=dev))
     assert tuple(idx.shape) == (262_144, 16)
     upd = torch.randn((262_144, 16, 2), generator=g, device=dev)
-    before = scatter.scatter_add.launches
+    before = launches("scatter_add")
     k = scatter.scatter_add(idx, upd, spec.n_params)
     torch.cuda.synchronize()
-    assert scatter.scatter_add.launches == before + 1
+    assert launches("scatter_add") == before + 1
     assert scatter_within(k, idx, upd, spec.n_params)
 
 
@@ -284,10 +284,10 @@ def test_gather_rows_backward_launches_k4(dev):
                                  desired_resolution=128)
     table = (torch.rand((spec.n_params, 2), device=dev) - 0.5).requires_grad_(True)
     x = torch.rand((5000, 3), device=dev) * 1.8 - 0.9
-    before = scatter.scatter_add.launches
+    before = launches("scatter_add")
     hashgrid.hashgrid_encode(table, x, spec).square().sum().backward()
     torch.cuda.synchronize()
-    assert scatter.scatter_add.launches == before + 1
+    assert launches("scatter_add") == before + 1
     ref = table.detach().cpu().requires_grad_(True)
     hashgrid.hashgrid_encode(ref, x.cpu(), spec).square().sum().backward()
     torch.testing.assert_close(table.grad.cpu(), ref.grad, rtol=1e-4, atol=1e-6)
@@ -303,10 +303,10 @@ def test_dense_intersect_launches_k3_equal_plain(dev, split):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     vt, tt = torch.from_numpy(v).to(dev), torch.from_numpy(tr).to(dev)
     ro, rd = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
-    before = dense_tracer.dense_hit.launches
+    before = launches("dense_hit")
     k = dense_tracer.dense_intersect(vt, tt, ro, rd, t_max=2.5, split=split)
     torch.cuda.synchronize()
-    assert dense_tracer.dense_hit.launches == before + 1
+    assert launches("dense_hit") == before + 1
     p = dense_tracer.dense_intersect(vt.cpu(), tt.cpu(), ro.cpu(), rd.cpu(), t_max=2.5)
     assert (p.prim >= 0).any() and (p.prim < 0).any()
     for f in k._fields:
@@ -323,9 +323,9 @@ def test_cluster_kind_dense_pass_launches_k3(dev):
     ro, rd = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
     tracer = build_tracer(torch.from_numpy(v).to(dev), torch.from_numpy(tr).to(dev),
                           kind="cluster")
-    before = dense_tracer.dense_hit.launches
+    before = launches("dense_hit")
     hit = tracer.intersect(ro, rd)
     occ = tracer.occluded(ro, rd, 1e9)
     torch.cuda.synchronize()
-    assert dense_tracer.dense_hit.launches == before + 2
+    assert launches("dense_hit") == before + 2
     assert torch.equal(occ, hit.prim >= 0)

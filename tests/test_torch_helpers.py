@@ -23,6 +23,13 @@ def t(x, dtype=None) -> torch.Tensor:
     return torch.from_numpy(a.copy() if dtype is None else a.astype(dtype))
 
 
+def launches(wrapper: str) -> int:
+    """The registry's launch count of a kernel wrapper so far."""
+    from mirres_restir_nerf_mesh_torch.utils.profiling import counters
+
+    return counters().get(f"launches.{wrapper}", 0)
+
+
 def n(x) -> np.ndarray:
     """tensor / jax array -> numpy."""
     if isinstance(x, torch.Tensor):

@@ -19,7 +19,7 @@ import torch
 from mirres_restir_nerf_mesh_tpu.ops.pallas_scatter import pallas_scatter_add
 from mirres_restir_nerf_mesh_torch.ops.scatter import scatter_add, scatter_add_plain
 
-from test_torch_helpers import TORCH_THREADS, n, t
+from test_torch_helpers import TORCH_THREADS, launches, n, t
 
 torch.set_num_threads(TORCH_THREADS)
 
@@ -73,9 +73,9 @@ def test_scatter_add_checks_and_drops():
     upd = torch.ones((5, 2))
     out = scatter_add(idx, upd, 4)       # 5 is out of range: dropped, as the reference drops it
     np.testing.assert_array_equal(n(out), [[1, 1], [0, 0], [2, 2], [0, 0]])
-    before = scatter_add.launches
+    before = launches("scatter_add")
     with pytest.raises(TypeError):
         scatter_add(idx.long(), upd, 4)
     with pytest.raises(ValueError):
         scatter_add(idx, torch.ones((4, 2)), 4)
-    assert scatter_add.launches == before            # the CPU path launches nothing
+    assert launches("scatter_add") == before            # the CPU path launches nothing
