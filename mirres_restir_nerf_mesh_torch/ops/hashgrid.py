@@ -21,18 +21,22 @@ one scatter-add into the whole table, kernel K4 on the card
 (ops/scatter.py).  The reference splits that backward per level, and sends
 its packed dense levels through XLA's scatter, only because its MXU one-hot
 must fit VMEM; atomics have no such limit and compute the same sums.
-``hashgrid_tv_loss`` reads all its rows through one ``GatherRows`` as well,
-so its table gradient is one K4 launch too.
+``hashgrid_tv_loss`` is formed over all levels at once (``tv_rows``: the
+rows of every level in one pass, a fixed number of operators) and reads
+them through one ``GatherRows`` as well, so its table gradient is one K4
+launch too.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..utils.profiling import count_upload
@@ -196,30 +200,60 @@ def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpe
     return feats.reshape(N, L * C)
 
 
+@functools.lru_cache(maxsize=None)
+def _tv_levels(spec: HashGridSpec, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The TV loss's per-level constants on ``device``, made once per spec
+    and device: (scales [L, 1, 1] float32, steps [4, 3] (base, +x, +y, +z),
+    mult [L, 1, 3], dense [L, 1], sizes [L, 1], offsets [L, 1]).  ``mult``
+    holds ``level_index``'s per-axis factors: (1, R1, R1^2) on a dense
+    level, the primes on a hashed one."""
+    offsets, scales, resolutions, dense = spec.level_meta()
+    R1 = resolutions + 1
+    mult = np.where(dense[:, None], np.stack([np.ones_like(R1), R1, R1 * R1], axis=1),
+                    np.array(PRIMES, dtype=np.int64)[None])
+    ints = np.concatenate([mult, dense[:, None], np.diff(offsets)[:, None], offsets[:-1, None]],
+                          axis=1)
+    count_upload("tv_levels", device)
+    ints = torch.as_tensor(ints, dtype=torch.int64, device=device)[:, None]      # [L,1,6]
+    count_upload("tv_levels", device)
+    scales = torch.as_tensor(scales, dtype=torch.float32, device=device)[:, None, None]
+    steps = torch.cat([torch.zeros((1, 3), dtype=torch.int64, device=device),
+                       torch.eye(3, dtype=torch.int64, device=device)])
+    return (scales, steps, ints[..., 0:3], ints[..., 3] != 0, ints[..., 4], ints[..., 5])
+
+
+def tv_rows(x: torch.Tensor, spec: HashGridSpec, bound: float = 1.0) -> torch.Tensor:
+    """The rows the TV loss reads at points x [P, 3]: every level's base
+    grid point and its +x, +y, +z neighbours, as ``level_index`` gives
+    them, as [P, 4L] int32 absolute row ids, level-major.  All levels at
+    once, in a number of operators that does not grow with the levels."""
+    scales, steps, mult, dense, sizes, offsets = _tv_levels(spec, x.device)
+    x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
+    P = x01.shape[0]
+    # x01 * scale and + 0.5 round apart, as in the encode; the sum is at
+    # least 0.5, so the conversion's truncation is its floor
+    pg = (x01.view(P, 1, 1, 3) * scales + 0.5).to(torch.int64)                 # [P,L,1,3]
+    prod = (pg + steps).mul_(mult)                                             # [P,L,4,3]
+    # a dense level masks the sum of the products, a hashed level xors the
+    # masked products; masking after the xor is the same (& distributes
+    # over ^)
+    a, b, c = prod.unbind(-1)
+    idx = torch.where(dense, prod.sum(-1), a ^ b ^ c)
+    idx = idx.bitwise_and_(_U32).remainder_(sizes).add_(offsets)
+    return idx.to(torch.int32).view(P, 4 * spec.num_levels)
+
+
 def hashgrid_tv_loss(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpec,
                      bound: float = 1.0, max_points: int = 4096) -> torch.Tensor:
     """Total variation at sampled points: for the first max_points points'
     base grid point at every level, the mean squared difference to its +1
-    neighbour along each axis, summed over levels and axes.  The 4 rows a
-    level reads per point (base, +x, +y, +z) of all levels go through one
-    ``GatherRows`` ([P, 4L] absolute row ids), so the gradient is one
-    scatter-add (K4 on the card)."""
-    x = x[:max_points]
-    x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
-    offsets, scales, resolutions, dense = spec.level_meta()
-    count_upload("tv_steps", x.device)
-    steps = torch.tensor([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], device=x.device)
-    cols = []
-    for lvl in range(spec.num_levels):
-        size = int(offsets[lvl + 1] - offsets[lvl])
-        pg = torch.floor(x01 * float(scales[lvl]) + 0.5).to(torch.int64)
-        pgc = pg[:, None, :] + steps[None]                                  # [P,4,3]
-        cols.append(int(offsets[lvl]) +
-                    level_index(pgc, bool(dense[lvl]), int(resolutions[lvl]), size))
-    vals = GatherRows.apply(embeddings, torch.cat(cols, dim=1).to(torch.int32))   # [P,4L,C]
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lvl in range(spec.num_levels):
-        base = vals[:, 4 * lvl]
-        for d in range(1, 4):
-            total = total + torch.mean((vals[:, 4 * lvl + d] - base) ** 2)
-    return total
+    neighbour along each axis, summed over levels and axes.
+
+    Formed over all levels at once: the rows of ``tv_rows`` go through one
+    ``GatherRows``, so the gradient is one scatter-add (K4 on the card),
+    and the levels' and axes' means, which share the denominator P * C,
+    are one sum of squares."""
+    idx = tv_rows(x[:max_points], spec, bound)
+    P, L, C = idx.shape[0], spec.num_levels, embeddings.shape[1]
+    base, nbrs = GatherRows.apply(embeddings, idx).view(P, L, 4, C).split([1, 3], dim=2)
+    return F.mse_loss(nbrs, base.expand_as(nbrs), reduction="sum") / (P * C)

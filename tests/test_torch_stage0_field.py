@@ -11,7 +11,12 @@ Tiny field (8 levels of 2^15, hidden 32); weights from the reference's
 - ``trunc_exp``: forward and the clamped gradient within 1e-6 relative.
 - ``hashgrid_tv_loss``: loss within 1e-5 relative and the table gradient
   within 1e-5 relative L2 (the same sums in another order), taken by one
-  scatter-add (one ``GatherRows`` over [P, 4L] rows).
+  scatter-add (one ``GatherRows`` over [P, 4L] rows).  At the cell's grid
+  (16 levels of 2^19, dense and hashed levels) against the loss formed
+  level by level: its rows equal bit for bit for points inside the box,
+  on its faces and outside it, the loss within 1e-6 relative and the
+  gradient within 1e-6 relative L2; its forward and backward dispatch as
+  many top-level operators at 4 levels as at 16, at most 40.
 - ``render_rays``: image, depth, weights_sum, weights within 1e-5 relative
   (atol 1e-6), masks equal: plain, perturbed with the cross-ray compaction
   under and over the point budget and the stochastic encode, and SDF mode
@@ -150,6 +155,120 @@ def test_tv_loss_and_its_gradient_match_reference(monkeypatch):
     assert calls == [(4096, 4 * spec.num_levels)]
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     assert rel_l2(n(tg), jg) < 1e-5
+
+
+# the cell's hash grid: 16 levels of 2^19, levels 0-4 dense, 5-15 hashed
+CELL_GRID = thg.HashGridSpec(num_levels=16, log2_hashmap_size=19, desired_resolution=2048)
+
+
+def tv_rows_per_level(x, spec, bound=1.0):
+    """The TV loss's rows as a loop over the levels forms them: the
+    batched ``tv_rows``'s yardstick."""
+    x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
+    offsets, scales, resolutions, dense = spec.level_meta()
+    steps = torch.tensor([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]])
+    cols = []
+    for lvl in range(spec.num_levels):
+        size = int(offsets[lvl + 1] - offsets[lvl])
+        pg = torch.floor(x01 * float(scales[lvl]) + 0.5).to(torch.int64)
+        pgc = pg[:, None, :] + steps[None]                                  # [P,4,3]
+        cols.append(int(offsets[lvl]) +
+                    thg.level_index(pgc, bool(dense[lvl]), int(resolutions[lvl]), size))
+    return torch.cat(cols, dim=1).to(torch.int32)
+
+
+def tv_loss_per_level(embeddings, x, spec, bound=1.0, max_points=4096):
+    """The TV loss as a sum of one mean per level and axis."""
+    x = x[:max_points]
+    vals = thg.GatherRows.apply(embeddings, tv_rows_per_level(x, spec, bound))
+    total = torch.zeros((), dtype=torch.float32)
+    for lvl in range(spec.num_levels):
+        base = vals[:, 4 * lvl]
+        for d in range(1, 4):
+            total = total + torch.mean((vals[:, 4 * lvl + d] - base) ** 2)
+    return total
+
+
+def tv_points(where, P=5000, seed=8):
+    """Points inside the box, on its faces (each point on one or more
+    faces) or partly outside it."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1.0, 1.0, (P, 3)).astype(np.float32)
+    if where == "faces":
+        on = rng.rand(P, 3) < 0.5
+        x = np.where(on, np.sign(x), x).astype(np.float32)
+    elif where == "outside":
+        x = rng.uniform(-1.5, 1.5, (P, 3)).astype(np.float32)
+    return t(x)
+
+
+@pytest.mark.parametrize("where", ["inside", "faces", "outside"])
+def test_tv_rows_equal_the_per_level_loop(where):
+    offsets, _, _, dense = CELL_GRID.level_meta()
+    assert dense.any() and not dense.all()
+    x = tv_points(where)
+    rows = thg.tv_rows(x, CELL_GRID)
+    assert rows.dtype == torch.int32 and rows.shape == (5000, 4 * CELL_GRID.num_levels)
+    assert torch.equal(rows, tv_rows_per_level(x, CELL_GRID))
+    assert int(rows.min()) >= 0 and int(rows.max()) < int(offsets[-1])
+
+
+def test_tv_loss_and_its_gradient_equal_the_per_level_loop():
+    x = torch.cat([tv_points("inside", 2000), tv_points("faces", 1500, 9),
+                   tv_points("outside", 1500, 10)])
+    g = torch.Generator().manual_seed(3)
+    emb = thg.init_hashgrid(g, CELL_GRID, std=0.1, device="cpu")
+    got, ref = emb.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+    tl = thg.hashgrid_tv_loss(got, x, CELL_GRID)
+    rl = tv_loss_per_level(ref, x, CELL_GRID)
+    (tg,) = torch.autograd.grad(tl, got)
+    (rg,) = torch.autograd.grad(rl, ref)
+    np.testing.assert_allclose(float(tl), float(rl), rtol=1e-6)
+    assert rel_l2(n(tg), n(rg)) < 1e-6
+
+
+def dispatched_ops(fn):
+    """The top-level aten operators fn dispatches, in order: operators not
+    called from inside another.  The table gradient's scatter-add counts as
+    one, as on the card, where ``scatter_add`` dispatches one ``zeros`` and
+    launches K4; on the CPU it runs the plain version's operators."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    names = []
+    for ev in prof.events():
+        p, inner = ev.cpu_parent, False
+        while p is not None and not inner:
+            inner = p.name.startswith("aten::") or p.name == "scatter_add"
+            p = p.cpu_parent
+        if not inner and (ev.name.startswith("aten::") or ev.name == "scatter_add"):
+            names.append(ev.name)
+    return names
+
+
+def test_tv_loss_operator_count_does_not_grow_with_levels(monkeypatch):
+    orig = thg.scatter_add
+
+    def ranged(*args):
+        with torch.profiler.record_function("scatter_add"):
+            return orig(*args)
+
+    monkeypatch.setattr(thg, "scatter_add", ranged)
+    x, seed = tv_points("inside", 4096), torch.ones(())
+    counts = {}
+    for levels in (4, 16):
+        spec = thg.HashGridSpec(num_levels=levels, log2_hashmap_size=19, desired_resolution=2048)
+        emb = torch.zeros((spec.n_params, 2), requires_grad=True)
+
+        def step():
+            torch.autograd.grad(thg.hashgrid_tv_loss(emb, x, spec), emb, seed)
+
+        step()                  # the per-level constants are made once per spec and device
+        ops = dispatched_ops(step)
+        assert ops.count("scatter_add") == 1
+        counts[levels] = len(ops)
+    assert counts[4] == counts[16] <= 40, counts
 
 
 def render_case(sdf=False):
