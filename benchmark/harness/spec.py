@@ -39,13 +39,19 @@ def benchmark_json(root: Path = ROOT) -> Dict:
 def with_waiting(root: Path = ROOT) -> Dict:
     """BENCHMARK.json with the entries of each ``waiting/<cell>.json`` (a
     cell that waits for a fix of the program) added: for the harness's
-    tests and tools, never for a run."""
+    tests and tools, never for a run.
+
+    A waiting entry whose ``name`` BENCHMARK.json already has under the same
+    key is skipped, so each name stands once.  A cell therefore moves in by
+    appending its entries to BENCHMARK.json alone; its waiting file may stay
+    until it is pruned."""
     bench = benchmark_json(root)
     out = {k: list(v) if isinstance(v, list) else v for k, v in bench.items()}
     for p in sorted((root / "benchmark" / "waiting").glob("*.json")):
         w = load_json(p)
         for key in ("configs", "workloads", "end_to_end", "per_layer"):
-            out[key] = out[key] + w.get(key, [])
+            have = {e["name"] for e in out[key]}
+            out[key] = out[key] + [e for e in w.get(key, []) if e["name"] not in have]
     return out
 
 

@@ -11,10 +11,14 @@ from benchmark.harness import spec
 
 BENCH = spec.benchmark_json()
 ALL = spec.with_waiting()
+KEYS = ("configs", "workloads", "end_to_end", "per_layer")
 
 
-@pytest.mark.parametrize("bench", [BENCH, ALL], ids=["benchmark", "with_waiting"])
-def test_every_named_file_is_found(bench):
+def names(bench, key):
+    return [e["name"] for e in bench[key]]
+
+
+def files_are_found(bench):
     for w in bench["workloads"]:
         spec.config(bench, w["config"])
         t = spec.traffic(w["traffic"])
@@ -22,10 +26,10 @@ def test_every_named_file_is_found(bench):
         assert spec.limits(w["name"])
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert hasattr(spec.reader(m["name"]), "read")
+        assert set(m.get("workloads", [])) <= set(names(bench, "workloads")), m["name"]
 
 
-@pytest.mark.parametrize("bench", [BENCH, ALL], ids=["benchmark", "with_waiting"])
-def test_each_cell_reports_setup_another_end_to_end_and_a_per_layer_metric(bench):
+def cells_report_enough(bench):
     for w in bench["workloads"]:
         e2e = [m["name"] for m in spec.metrics_of(bench, w["name"], False)]
         per = [m["name"] for m in spec.metrics_of(bench, w["name"], True)]
@@ -34,10 +38,56 @@ def test_each_cell_reports_setup_another_end_to_end_and_a_per_layer_metric(bench
         assert moved <= set(e2e)
 
 
+def waiting_is_apart(root):
+    """with_waiting()'s cells are BENCHMARK.json's and the waiting ones; a
+    waiting cell that BENCHMARK.json lacks is not in it, so no run finds it;
+    every name stands once under each key of with_waiting(); every
+    configuration of BENCHMARK.json is used by one of its cells."""
+    bench, every = spec.benchmark_json(root), spec.with_waiting(root)
+    waiting = {w["name"] for p in (root / "benchmark" / "waiting").glob("*.json")
+               for w in spec.load_json(p).get("workloads", [])}
+    assert set(names(every, "workloads")) == set(names(bench, "workloads")) | waiting
+    for cell in waiting - set(names(bench, "workloads")):
+        with pytest.raises(spec.SpecError):
+            spec.cell(bench, cell)
+    for key in KEYS:
+        assert len(names(every, key)) == len(set(names(every, key))), key
+    assert all(c["name"] in {w["config"] for w in bench["workloads"]} for c in bench["configs"])
+
+
+@pytest.mark.parametrize("bench", [BENCH, ALL], ids=["benchmark", "with_waiting"])
+def test_every_named_file_is_found(bench):
+    files_are_found(bench)
+
+
+@pytest.mark.parametrize("bench", [BENCH, ALL], ids=["benchmark", "with_waiting"])
+def test_each_cell_reports_setup_another_end_to_end_and_a_per_layer_metric(bench):
+    cells_report_enough(bench)
+
+
 def test_waiting_cells_are_not_run():
-    names = {w["name"] for w in BENCH["workloads"]}
-    assert {w["name"] for w in ALL["workloads"]} > names
-    assert all(c["name"] in {w["config"] for w in BENCH["workloads"]} for c in BENCH["configs"])
+    waiting_is_apart(spec.ROOT)
+
+
+def test_a_waiting_cell_moves_in_by_additions_alone(tmp_path):
+    """Appending a waiting cell's entries to BENCHMARK.json, and editing
+    nothing, makes it a whole cell."""
+    shutil.copy(spec.ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(spec.BENCH_DIR / "waiting", tmp_path / "benchmark" / "waiting")
+    w = spec.load_json(tmp_path / "benchmark" / "waiting" / "train1-restir-800.json")
+    moved = spec.benchmark_json(tmp_path)
+    for key in KEYS:
+        moved[key] += w.get(key, [])
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(moved, indent=2))
+
+    every = spec.with_waiting(tmp_path)
+    for key in KEYS:
+        assert names(every, key) == names(moved, key), key
+    waiting_is_apart(tmp_path)
+    files_are_found(moved)
+    cells_report_enough(moved)
+    assert {m["name"] for m in spec.metrics_of(moved, "train1-restir-800", False)} == {
+        "stage1_train_Mrays_per_s", "peak_mem_GB", "setup_s"}
 
 
 def test_added_files_are_picked_up(tmp_path):
