@@ -5,8 +5,9 @@ wrappers (nothing inside the program changes):
   (``ops/tracer.Tracer.intersect`` / ``occluded``), copied to the host, for
   the reference to replay;
 - ``counting_work``: the model FLOPs of each field evaluation (the
-  radiance field's MLPs and hash-grid encodes, the material field), and the shape of each K4 launch (updates, channels, table
-  rows) with its bytes;
+  radiance field's MLPs and hash-grid encodes, the material field), the
+  witness that the shape counts of ``counts/flops.py`` are held to, and the
+  shape of each K4 launch (updates, channels, table rows) with its bytes;
 - ``timed_span``: a span of the benchmark's own, synchronized at both edges.
 
 They run in set-up (the recording) and in a traced run's profiled stretch

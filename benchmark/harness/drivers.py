@@ -19,6 +19,10 @@ then runs on to ``settle_steps``, so that ``_adapt_num_rays`` has grown
 the batch to the window's, copies its state to ``records`` and follows as
 many steps again.  The window runs whole steps until ``--seconds`` have
 passed.
+
+Before each step a driver adds that step's model FLOPs, counted from the
+shapes it runs at (``work_per_step``, ``counts/flops.py``; host integers
+only), to ``flops``; the window reports those of its own steps.
 """
 
 from __future__ import annotations
@@ -84,6 +88,7 @@ class Driver:
         self.program: Dict = {}      # readings the reference is compared with
         self.records: List[Dict] = []
         self.spans = counting.Spans(False)
+        self.flops: Optional[int] = 0    # model FLOPs of the steps taken (None: not counted)
         self.log = lambda msg: None
 
     def build_kernels(self) -> None:
@@ -113,11 +118,23 @@ class Driver:
                                device=self.device)
         self.log("Trainer built")
 
+    def tally(self) -> None:
+        """Add the model FLOPs of the step about to run."""
+        f = self.work_per_step().get("flops")
+        self.flops = None if f is None or self.flops is None else self.flops + f
+
+    def work_per_step(self) -> Dict:
+        """The step about to run, from its shapes: ``flops``, its model FLOPs
+        (left out where the kind cannot count them)."""
+        return {}
+
     def window(self, seconds: float) -> Dict:
-        """Whole steps until ``seconds`` have passed -> steps, seconds and
-        each step's host seconds (unsynchronized: a diagnostic)."""
+        """Whole steps until ``seconds`` have passed -> steps, seconds, the
+        steps' model FLOPs (None: not counted) and each step's host seconds
+        (unsynchronized: a diagnostic)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize()
+        f0 = self.flops
         t0 = time.perf_counter()
         marks = [t0]
         while len(marks) == 1 or marks[-1] - t0 < seconds:
@@ -126,6 +143,7 @@ class Driver:
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         return {"steps": len(marks) - 1, "seconds": time.perf_counter() - t0,
+                "flops": None if self.flops is None else self.flops - f0,
                 "step_s": [b - a for a, b in zip(marks, marks[1:])]}
 
     def state_note(self) -> str:
@@ -188,6 +206,7 @@ class Stage1Train(Driver):
 
     def step(self):
         t = self.trainer
+        self.tally()
         batch = t._stage1_batch(self.i)
         rand = t._frame_randoms(batch["rays_o"].shape[0], t.static)
         t.state, aux = t.train_step(t.state, batch, rand=rand)
@@ -197,9 +216,7 @@ class Stage1Train(Driver):
         return aux
 
     def work_per_step(self) -> Dict:
-        st = self.trainer.static
-        return {"nominal_rays": F.nominal_rays(st.H, st.W, st.spp, st.restir_neighbors,
-                                               st.bounces, st.restir_unbiased_spatial)}
+        return {"flops": F.stage1_step_flops(self.trainer.static)}
 
 
 def host_tree(x):
@@ -267,6 +284,7 @@ class Stage0Train(Driver):
     def step(self):
         t = self.trainer
         i = self.i
+        self.tally()
         rand = t._stage0_randoms()
         if i % t.cfg.update_extra_interval == 0:
             with self.spans.span("occ_update"):
@@ -283,7 +301,22 @@ class Stage0Train(Driver):
         return aux
 
     def work_per_step(self) -> Dict:
-        return {}
+        """The field on the batch's compacted rows at the current batch size
+        and march lattice (``_adapt_num_rays`` may have grown both), and an
+        occupancy update where the step makes one; sdf mode's field is not
+        counted."""
+        t = self.trainer
+        cfg, spec = t.cfg, t.nerf_spec
+        if cfg.sdf:
+            return {}
+        lattice = t.train_step.march_candidates or cfg.max_steps
+        rows = F.field_rows(cfg.num_rays, min(cfg.samples_per_ray, lattice, cfg.max_steps),
+                            cfg.num_points if cfg.adaptive_num_rays else None)
+        flops = F.stage0_step_flops(spec, rows, cfg.stochastic_interp)
+        if self.i % cfg.update_extra_interval == 0:
+            flops += F.occupancy_update_flops(spec, cfg.cascade, cfg.grid_size,
+                                              cfg.stochastic_interp)
+        return {"flops": flops}
 
     def state_note(self) -> str:
         return (f"num_rays {self.trainer.cfg.num_rays}, num_points of the last step "

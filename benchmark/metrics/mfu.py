@@ -1,13 +1,13 @@
-"""mfu.<cell>: model FLOPs a step (the MLP products and hash-grid
-interpolations of the rows the step evaluates, three times the forward
-where it is differentiated; ``counts/flops.py``, counted over the
-profiled stretch) over the untraced window's seconds a step, as a percent
-of the card's bf16 dense peak (``peaks.json``)."""
+"""mfu: the whole step's share of the card's bf16 dense peak
+(``peaks.json``): the model FLOPs of the window's steps (the MLP products
+and hash-grid interpolations of the rows each step evaluates, three times
+the forward where it is differentiated), counted from each step's shapes
+before it runs (``counts/flops.py``, ``Driver.work_per_step``; host
+integers, no wrapper or sync in the window), over the window's seconds."""
 
 
 def read(name, ctx):
-    if ctx.peaks is None or ctx.work.flops <= 0 or not ctx.window["steps"]:
+    flops = ctx.window.get("flops")
+    if ctx.peaks is None or not flops:
         return None
-    flops_per_step = ctx.work.flops / ctx.profiled_steps
-    step_s = ctx.window["seconds"] / ctx.window["steps"]
-    return 100.0 * flops_per_step / step_s / ctx.peaks["bf16_flops"]
+    return 100.0 * flops / ctx.window["seconds"] / ctx.peaks["bf16_flops"]

@@ -198,16 +198,18 @@ def run_cell(args, device="cuda", plant=None, root: Path = ROOT) -> Dict:
 
         log("profiled stretch")
         drv.spans.on = True
+        f0 = drv.flops
         with counting.counting_work(work):
             prof = profiled(stretch, str(tmp)) if cuda else None
             if not cuda:
                 stretch()
         log("profile read")
+        log(flops_note(win, None if f0 is None else drv.flops - f0, work.flops, n_prof))
     failed = drv.failed_steps()
     peaks = json.load(open(root / "benchmark" / "peaks.json"))
     kind = torch.cuda.get_device_name(0) if cuda else "cpu"
     ctx = Context(cell=cell, config=config, traffic=traffic, setup_s=setup_s, window=win,
-                  work_per_step=drv.work_per_step(), peak_window_bytes=peak_window,
+                  peak_window_bytes=peak_window,
                   profile=prof, profiled_steps=n_prof, work=work, spans=drv.spans.seconds,
                   peaks=peaks.get(kind))
     metrics = {}
@@ -240,6 +242,17 @@ def run_cell(args, device="cuda", plant=None, root: Path = ROOT) -> Dict:
     correct = result.passed(checks) and failed == 0
     return {"correct": correct, "attempted": attempted, "failed": failed, "metrics": metrics,
             "device": device_info, "breakdown": breakdown, "checks": checks, "why": why}
+
+
+def flops_note(win: Dict, shape_flops: Optional[int], wrapper_flops: int, steps: int) -> str:
+    """The profiled stretch's model FLOPs from the steps' shapes beside the
+    wrappers' count of the same steps, and the window's FLOPs a second by
+    each (a diagnostic for the run's log)."""
+    window = None if win["flops"] is None else win["flops"] / win["seconds"]
+    by_wrappers = wrapper_flops / steps * win["steps"] / win["seconds"]
+    return (f"FLOPs over the stretch of {steps} steps: shapes {shape_flops!r}, wrappers "
+            f"{wrapper_flops!r}; the window's FLOP/s {window!r} from its own steps' shapes, "
+            f"{by_wrappers!r} from the wrappers' a step")
 
 
 def reference_of(kind: str):

@@ -71,11 +71,16 @@ def test_waiting_cells_are_not_run():
 
 def test_a_waiting_cell_moves_in_by_additions_alone(tmp_path):
     """Appending a waiting cell's entries to BENCHMARK.json, and editing
-    nothing, makes it a whole cell."""
+    nothing, makes it a whole cell that reports the end-to-end metrics
+    BENCHMARK.json already has: the move adds no end-to-end entry, which a
+    change that adds a configuration may not add."""
     shutil.copy(spec.ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     shutil.copytree(spec.BENCH_DIR / "waiting", tmp_path / "benchmark" / "waiting")
     w = spec.load_json(tmp_path / "benchmark" / "waiting" / "train1-restir-800.json")
     moved = spec.benchmark_json(tmp_path)
+    before = set(names(moved, "end_to_end"))
+    assert not w.get("end_to_end")
+    assert {m["moves"] for m in w["per_layer"]} <= before
     for key in KEYS:
         moved[key] += w.get(key, [])
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(moved, indent=2))
@@ -86,8 +91,9 @@ def test_a_waiting_cell_moves_in_by_additions_alone(tmp_path):
     waiting_is_apart(tmp_path)
     files_are_found(moved)
     cells_report_enough(moved)
+    assert set(names(moved, "end_to_end")) == before
     assert {m["name"] for m in spec.metrics_of(moved, "train1-restir-800", False)} == {
-        "stage1_train_Mrays_per_s", "peak_mem_GB", "setup_s"}
+        "mfu", "peak_mem_GB", "setup_s"}
 
 
 def test_added_files_are_picked_up(tmp_path):
