@@ -8,6 +8,7 @@ JPEG frames, sparse and dense depth, and both train steps data-parallel.
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
     python3 chip_smoke.py --k3-route    (the dense route alone; see k3_route)
+    python3 chip_smoke.py --k5          (K5 alone; see check_k5)
     python3 chip_smoke.py --dp          (phase 4j alone)
     python3 chip_smoke.py --dp-stage1 N (phase 4j (b) alone, N runs)
     python3 chip_smoke.py --last-modules    (phases 4h and 4i, then 4k)
@@ -68,7 +69,12 @@ Phases (any failure exits non-zero):
    table): event times of the calls, and device times of the kernel alone,
    the zeroing alone and index_add_ alone on inputs and a table allocated
    beforehand (queued the same way).  K4 at the stage-0 step's own two
-   launches is checked the same way after phase 4f.
+   launches is checked the same way after phase 4f.  K5 (the one-corner
+   hash-grid encode of every level in one launch) at the stage-0 step's
+   shape (2^18 points, rows kept), the occupancy update's (128^3 points,
+   no rows) and the bounce material re-query's: rows and features equal
+   to the plain version's bit for bit, event, host and device ms beside
+   the plain version's ms and the byte bound (check_k5).
 4. The main path (frames and steps are timed through the port's bench
    module, mirres_restir_nerf_mesh_torch/bench.py, which also holds the
    operating point's set-up: one warm sample, then the launch counters
@@ -848,6 +854,80 @@ def check_scatter(verts, tris, cm, cam, gen):
     res["one_d_entry"] = {k: flat[k] for k in ("max_abs_err", "ms", "device_ms")}
     res["contention"] = dict(shape=f"{idx.numel()} updates of {C} into 8 rows", **hot,
                              **bound(0, idx.numel() * 4 + upd.numel() * 4 + 8 * C * 4))
+    return res
+
+
+# K5's shapes: the stage-0 step's encode (2^18 march samples, rows kept for
+# the backward), the occupancy update's (128^3 jittered cell centres, under
+# no_grad) and stage 1's bounce material re-query (the bench frame's covered
+# pixels x spp, 29,460 x 32, on the blob's surface)
+K5_SHAPES = (("stage-0 step", "nerf", 1 << 18, True),
+             ("stage-0 occupancy update", "nerf", 128 ** 3, False),
+             ("material bounce re-query", "material", 29_460 * 32, True))
+
+
+def k5_points(kind, P, gen, dev):
+    """x [P, 3] as the caller of each K5 shape gives them."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.ops.occupancy import grid_cell_centers
+
+    if kind == "stage-0 step":     # 8192 rays x 32 samples clustered along each ray
+        rays = P // 32
+        o = torch.randn((rays, 1, 3), generator=gen, device=dev)
+        o = o / o.norm(dim=-1, keepdim=True) * 2.0
+        tgt = torch.rand((rays, 1, 3), generator=gen, device=dev) - 0.5
+        ts = torch.rand((rays, 32, 1), generator=gen, device=dev) * 0.8 + 0.6
+        return torch.clamp(o + (tgt - o) / 2.0 * ts, -1.0, 1.0).reshape(-1, 3)
+    if kind == "stage-0 occupancy update":
+        half = 1.0 / 128
+        c = grid_cell_centers(128, dev).reshape(-1, 3) * (1.0 - half)
+        return c + (torch.rand(c.shape, generator=gen, device=dev) * 2.0 - 1.0) * half
+    d = torch.randn((P, 3), generator=gen, device=dev)
+    return d / d.norm(dim=-1, keepdim=True) * 0.8
+
+
+def check_k5(dev, seed: int):
+    """K5 (the one-corner hash-grid encode, csrc/hashgrid_encode.cu) at
+    each of K5_SHAPES against its plain version on the card: rows and
+    features equal bit for bit, then event ms and host ms of the call, its
+    device ms on inputs allocated beforehand (queued_ms) and the plain
+    version's event ms, beside the byte bound (x, u, the gathered rows, the
+    features and the rows if kept, each once)."""
+    import torch
+
+    from mirres_restir_nerf_mesh_torch.models.material import MaterialSpec
+    from mirres_restir_nerf_mesh_torch.models.nerf import NeRFSpec
+    from mirres_restir_nerf_mesh_torch.ops.hashgrid import one_corner_kernel, one_corner_plain
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    grids = {"nerf": NeRFSpec(bound=1.0).grid, "material": MaterialSpec(bound=1.0).grid}
+    res = []
+    for kind, grid, P, with_rows in K5_SHAPES:
+        spec = grids[grid]
+        table = torch.rand((spec.n_params, 2), generator=gen, device=dev) * 2e-4 - 1e-4
+        x = k5_points(kind, P, gen, dev)
+        u = torch.rand(x.shape, generator=gen, device=dev)
+        feats, rows = one_corner_kernel(table, x, u, spec, with_rows=with_rows)
+        torch.cuda.synchronize()
+        p_feats, p_rows = one_corner_plain(table, x, u, spec)
+        equal = same_bits(feats, p_feats) and (rows is None or same_bits(rows, p_rows))
+        if not equal or (rows is None) == with_rows:
+            raise AssertionError(f"K5 hashgrid_encode, {kind}: differs from its plain version")
+        L = spec.num_levels
+        nbytes = P * (3 * 4 * 2 + L * 8 * 2 + (L * 4 if with_rows else 0))
+
+        def run():
+            return one_corner_kernel(table, x, u, spec, with_rows=with_rows)
+
+        res.append(dict(what=kind, shape=f"{P} points x {L} levels of {grid} grid "
+                                         f"({spec.n_params} rows), rows "
+                                         f"{'kept' if with_rows else 'not written'}",
+                        bit_equal=equal, ms=cuda_ms(run, 10), host_ms=host_ms(run),
+                        device_ms=queued_ms(run),
+                        plain_ms=cuda_ms(lambda: one_corner_plain(table, x, u, spec), 3),
+                        **bound(0, nbytes)))
+        del table, x, u, feats, rows, p_feats, p_rows
     return res
 
 
@@ -4130,6 +4210,9 @@ def main(argv=None) -> int:
     ap.add_argument("--plant-k4-fault", choices=("scale", "drop"), default=None,
                     help="run phases 5b and 5d alone with a fault planted in K4 (updates x "
                          "1.01, or an encode's launch dropped); exit 0 only if 5d fails")
+    ap.add_argument("--k5", action="store_true",
+                    help="check and time K5 (the one-corner hash-grid encode) alone at its "
+                         "shapes after the build, and exit (no result line)")
     ap.add_argument("--dp", action="store_true",
                     help="run phase 4j (data parallelism) alone after the build and exit (no "
                          "result line)")
@@ -4177,6 +4260,10 @@ def main(argv=None) -> int:
 
     if args.k3_route:
         k3_route(args.seed, dev)
+        return 0
+    if args.k5:
+        for c in check_k5(dev, args.seed):
+            log("K5 hashgrid_encode: " + json.dumps(c))
         return 0
     if args.plant_k4_fault:
         return planted_fault_run(args.plant_k4_fault, args.seed, dev)
@@ -4282,6 +4369,9 @@ def main(argv=None) -> int:
     del bo, bd, xo, xd, xt, so, sd, st_max
     k4 = check_scatter(vb, fb, cm_big, cam, gen)
     log("K4 scatter_add: " + json.dumps(k4))
+    k5 = check_k5(dev, args.seed)
+    for c in k5:
+        log("K5 hashgrid_encode: " + json.dumps(c))
     torch.cuda.empty_cache()
 
     counts = (zero_counts, read_counts)
@@ -4638,6 +4728,11 @@ def main(argv=None) -> int:
              ms=k4["ms"], device_ms=k4["device_ms"], plain_ms=k4["plain_ms"],
              bound_ms=k4["bound_ms"], bound_by=k4["bound_by"], library_ms=k4["library_ms"],
              library_device_ms=k4["library_device_ms"], checks=[k4]),
+        dict(name="hashgrid_encode (K5), the one-corner encode", route="cuda",
+             source="mirres_restir_nerf_mesh_torch/csrc/hashgrid_encode.cu", replaces=None,
+             launches=None, max_abs_err=0.0, ms=k5[0]["ms"], device_ms=k5[0]["device_ms"],
+             plain_ms=k5[0]["plain_ms"], bound_ms=k5[0]["bound_ms"],
+             bound_by=k5[0]["bound_by"], library_ms=None, checks=k5),
     ]
     # K4's stage-0 rows: each shape is one of the K4_STAGE0_LAUNCHES launches
     # of every step of phase 4f

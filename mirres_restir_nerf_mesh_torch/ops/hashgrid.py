@@ -14,13 +14,17 @@ the cell id runs (x, y, z): corner (cx, cy, cz) there reads the table row of
 grid point (x+cz, y+cy, z+cx) and weighs it as corner (cx, cy, cz).  The
 port reproduces that pairing so the features match.
 
-Every table row an encode reads goes through one ``GatherRows`` over the
-absolute row ids of all levels ([N, 8L] exact, [N, L] stochastic): the
-forward is a plain row index (the reference's ``jnp.take``), the backward
-one scatter-add into the whole table, kernel K4 on the card
-(ops/scatter.py).  The reference splits that backward per level, and sends
-its packed dense levels through XLA's scatter, only because its MXU one-hot
-must fit VMEM; atomics have no such limit and compute the same sums.
+The exact encode reads its table rows through one ``GatherRows`` over the
+absolute row ids of all levels ([N, 8L]): the forward is a plain row index
+(the reference's ``jnp.take``), the backward one scatter-add into the whole
+table, kernel K4 on the card (ops/scatter.py).  The one-corner encode is
+``OneCornerEncode``: on the card kernel K5 (csrc/hashgrid_encode.cu) forms
+the [N, L] row ids and gathers every level's features in one launch; on
+the CPU its plain version (``encode_rows`` and the same row index) runs.
+Its backward is the same K4 scatter-add, over the rows K5 wrote.  The
+reference splits that backward per level, and sends its packed dense
+levels through XLA's scatter, only because its MXU one-hot must fit VMEM;
+atomics have no such limit and compute the same sums.
 ``hashgrid_tv_loss`` is formed over all levels at once (``tv_rows``: the
 rows of every level in one pass, a fixed number of operators) and reads
 them through one ``GatherRows`` as well, so its table gradient is one K4
@@ -29,6 +33,7 @@ launch too.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -38,8 +43,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..cuda_build import check, stream_ptr
 from ..device import resolve_device
-from ..utils.profiling import count_upload
+from ..utils.profiling import count, count_upload
 from .scatter import scatter_add
 
 PRIMES = (1, 2654435761, 805459861)
@@ -177,21 +183,154 @@ def encode_rows(x: torch.Tensor, spec: HashGridSpec, bound: float = 1.0,
     return idx, (torch.stack(weights, dim=1) if weights else None)
 
 
+def _level_ints(spec: HashGridSpec) -> np.ndarray:
+    """Each level's integer constants, [L, 6] int64: ``level_index``'s
+    per-axis factors (1, R1, R1^2) on a dense level, the primes on a
+    hashed one; dense (0 or 1); size; offset."""
+    offsets, _, resolutions, dense = spec.level_meta()
+    R1 = resolutions + 1
+    mult = np.where(dense[:, None], np.stack([np.ones_like(R1), R1, R1 * R1], axis=1),
+                    np.array(PRIMES, dtype=np.int64)[None])
+    return np.concatenate([mult, dense[:, None], np.diff(offsets)[:, None], offsets[:-1, None]],
+                          axis=1)
+
+
+MAX_LEVELS = 32
+
+
+class _LevelBlock(ctypes.Structure):
+    """K5's per-level constants, passed by value in its launch's parameters
+    (``LevelBlock`` in csrc/hashgrid_encode.cu): scales rounded to fp32,
+    level l dense where bit l of ``dense`` is set."""
+
+    _fields_ = [("num_levels", ctypes.c_int), ("dense", ctypes.c_uint32),
+                ("scale", ctypes.c_float * MAX_LEVELS), ("offset", ctypes.c_uint32 * MAX_LEVELS),
+                ("size", ctypes.c_uint32 * MAX_LEVELS),
+                ("mult", (ctypes.c_uint32 * 3) * MAX_LEVELS)]
+
+
+@functools.lru_cache(maxsize=None)
+def level_block(spec: HashGridSpec) -> _LevelBlock:
+    """The ``_LevelBlock`` of a grid spec, made once per spec on the host."""
+    if not 1 <= spec.num_levels <= MAX_LEVELS:
+        raise ValueError(f"hashgrid_encode: K5 takes 1 to {MAX_LEVELS} levels, "
+                         f"got {spec.num_levels}")
+    ints = _level_ints(spec)
+    blk = _LevelBlock(num_levels=spec.num_levels,
+                      dense=sum(1 << lvl for lvl in range(spec.num_levels) if ints[lvl, 3]))
+    for lvl, scale in enumerate(spec.level_meta()[1].astype(np.float32)):
+        blk.scale[lvl] = scale
+        blk.offset[lvl], blk.size[lvl] = int(ints[lvl, 5]), int(ints[lvl, 4])
+        blk.mult[lvl][:] = [int(m) & _U32 for m in ints[lvl, 0:3]]
+    return blk
+
+
+@functools.lru_cache(maxsize=None)
+def _k5():
+    """K5's bound C entry, bound once."""
+    from ..cuda_build import load
+
+    launch = load("hashgrid_encode").hashgrid_encode_launch
+    launch.restype = ctypes.c_int
+    vp = ctypes.c_void_p
+    launch.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
+                       ctypes.POINTER(_LevelBlock), vp, vp, vp]
+    return launch
+
+
+def one_corner_plain(table: torch.Tensor, x: torch.Tensor, u: torch.Tensor, spec: HashGridSpec,
+                     bound: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5: ``encode_rows`` with ``stochastic_u`` and
+    ``GatherRows``' row index -> (features [N, L*C], rows [N, L] int32)."""
+    rows, _ = encode_rows(x, spec, bound, stochastic_u=u)
+    feats = table.index_select(0, rows.reshape(-1))
+    return feats.reshape(x.shape[0], spec.num_levels * table.shape[1]), rows
+
+
+def one_corner_kernel(table: torch.Tensor, x: torch.Tensor, u: torch.Tensor, spec: HashGridSpec,
+                      bound: float = 1.0, with_rows: bool = True
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch K5 on the card -> (features [N, 2L] fp32, rows [N, L] int32,
+    or None without ``with_rows``).  Raises on what K5 does not take."""
+    blk = level_block(spec)
+    if spec.level_dim != 2 or table.dim() != 2 or table.shape[1] != 2:
+        raise ValueError(f"hashgrid_encode: K5 takes a [R, 2] table, got {tuple(table.shape)} "
+                         f"for level_dim {spec.level_dim}")
+    if not (table.device == x.device == u.device and table.is_cuda):
+        raise ValueError(f"hashgrid_encode: table on {table.device}, x on {x.device}, "
+                         f"stochastic_u on {u.device}; K5 takes all three on one card")
+    if not (table.dtype == x.dtype == u.dtype == torch.float32):
+        raise TypeError(f"hashgrid_encode: K5 takes float32, got table {table.dtype}, "
+                        f"x {x.dtype}, stochastic_u {u.dtype}")
+    if x.dim() != 2 or x.shape[1] != 3 or u.shape != x.shape:
+        raise ValueError(f"hashgrid_encode: x and stochastic_u must be [N, 3], got "
+                         f"{tuple(x.shape)} and {tuple(u.shape)}")
+    if table.shape[0] < spec.n_params:
+        raise ValueError(f"hashgrid_encode: the table has {table.shape[0]} rows, the grid "
+                         f"{spec.n_params}")
+    N, L = x.shape[0], spec.num_levels
+    feats = torch.empty((N, 2 * L), dtype=torch.float32, device=x.device)
+    rows = torch.empty((N, L), dtype=torch.int32, device=x.device) if with_rows else None
+    if N:
+        table = table.contiguous()
+        if table.data_ptr() % 8:
+            table = table.clone()
+        x, u = x.contiguous(), u.contiguous()
+        check(_k5()(x.data_ptr(), u.data_ptr(), table.data_ptr(), N, float(bound), 2.0 * bound,
+                    ctypes.byref(blk), feats.data_ptr(), None if rows is None else rows.data_ptr(),
+                    stream_ptr(x.device)), "hashgrid_encode")
+        count("launches.hashgrid_encode")
+    return feats, rows
+
+
+class OneCornerEncode(torch.autograd.Function):
+    """The one-corner encode of every level: (table [R, C], x [N, 3],
+    u [N, 3], spec, bound, with_rows) -> features [N, L*C].  K5 on the
+    card, ``one_corner_plain`` on the CPU.  Saves only the rows (written
+    when ``with_rows``); the backward is ``GatherRows``' K4 scatter-add on
+    the [points, levels] layout.  x and u get no gradient: the rows are
+    integers."""
+
+    @staticmethod
+    def forward(ctx, table, x, u, spec, bound, with_rows):
+        if table.is_cuda or x.is_cuda or u.is_cuda:
+            feats, rows = one_corner_kernel(table, x, u, spec, bound, with_rows)
+        else:
+            feats, rows = one_corner_plain(table, x, u, spec, bound)
+        if with_rows:
+            ctx.save_for_backward(rows)
+        ctx.n_rows = table.shape[0]
+        return feats
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 6
+        (rows,) = ctx.saved_tensors
+        upd = g.reshape(*rows.shape, g.shape[-1] // rows.shape[-1])
+        return (scatter_add(rows, upd, ctx.n_rows),) + (None,) * 5
+
+
 def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpec,
                     bound: float = 1.0, stochastic_u: Optional[torch.Tensor] = None,
                     max_level=None) -> torch.Tensor:
     """Encode x in [-bound, bound]^3 -> [N, num_levels*level_dim].
 
     stochastic_u: [N, 3] uniforms for the one-corner estimator (one triple
-    per point, shared across levels); None = exact trilinear interpolation.
+    per point, shared across levels; ``OneCornerEncode``, K5 on the card);
+    None = exact trilinear interpolation.
     max_level: levels >= max_level output zeros (progressive levels; an int
     or a scalar tensor)."""
     N, L, C = x.shape[0], spec.num_levels, embeddings.shape[1]
-    idx, w = encode_rows(x, spec, bound, stochastic_u)
-    vals = GatherRows.apply(embeddings, idx)                            # [N,K,C]
-    if w is None:
-        feats = vals.reshape(N, L, C)
+    if stochastic_u is not None:
+        with_rows = torch.is_grad_enabled() and embeddings.requires_grad
+        feats = OneCornerEncode.apply(embeddings, x, stochastic_u, spec, bound, with_rows)
+        if max_level is None:
+            return feats
+        feats = feats.view(N, L, C)
     else:
+        idx, w = encode_rows(x, spec, bound)
+        vals = GatherRows.apply(embeddings, idx)                        # [N,8L,C]
         feats = torch.sum(vals.reshape(N, L, 8, C) * w[..., None], dim=2)
     if max_level is not None:
         lvl = torch.arange(L, device=x.device)
@@ -204,19 +343,13 @@ def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpe
 def _tv_levels(spec: HashGridSpec, device: torch.device) -> Tuple[torch.Tensor, ...]:
     """The TV loss's per-level constants on ``device``, made once per spec
     and device: (scales [L, 1, 1] float32, steps [4, 3] (base, +x, +y, +z),
-    mult [L, 1, 3], dense [L, 1], sizes [L, 1], offsets [L, 1]).  ``mult``
-    holds ``level_index``'s per-axis factors: (1, R1, R1^2) on a dense
-    level, the primes on a hashed one."""
-    offsets, scales, resolutions, dense = spec.level_meta()
-    R1 = resolutions + 1
-    mult = np.where(dense[:, None], np.stack([np.ones_like(R1), R1, R1 * R1], axis=1),
-                    np.array(PRIMES, dtype=np.int64)[None])
-    ints = np.concatenate([mult, dense[:, None], np.diff(offsets)[:, None], offsets[:-1, None]],
-                          axis=1)
+    mult [L, 1, 3], dense [L, 1], sizes [L, 1], offsets [L, 1]), from
+    ``_level_ints``."""
     count_upload("tv_levels", device)
-    ints = torch.as_tensor(ints, dtype=torch.int64, device=device)[:, None]      # [L,1,6]
+    ints = torch.as_tensor(_level_ints(spec), dtype=torch.int64, device=device)[:, None]  # [L,1,6]
     count_upload("tv_levels", device)
-    scales = torch.as_tensor(scales, dtype=torch.float32, device=device)[:, None, None]
+    scales = torch.as_tensor(spec.level_meta()[1], dtype=torch.float32,
+                             device=device)[:, None, None]
     steps = torch.cat([torch.zeros((1, 3), dtype=torch.int64, device=device),
                        torch.eye(3, dtype=torch.int64, device=device)])
     return (scales, steps, ints[..., 0:3], ints[..., 3] != 0, ints[..., 4], ints[..., 5])

@@ -2,12 +2,12 @@
 the tile split forced off and on), K3 (csrc/dense_hit.cu, closest and
 any hit, split forced off and on, also with t_min < 0, rows equal bit for
 bit; on a bare mesh through ``dense_intersect`` and as the cluster tracer
-kind's dense pass) and K4
-(csrc/scatter_add.cu, its 1-D and [N, Kc] entries and a contention-heavy
-input) against their plain PyTorch versions on the same inputs, and the
-launch counters.  Skipped without a CUDA device.  On a
-machine with the card and without JAX, run them without the suite's
-conftest (which imports JAX):
+kind's dense pass), K4 (csrc/scatter_add.cu, its 1-D and [N, Kc] entries
+and a contention-heavy input) and K5 (csrc/hashgrid_encode.cu, rows and
+features equal bit for bit, the table gradient through K4) against their
+plain PyTorch versions on the same inputs, and the launch counters.
+Skipped without a CUDA device.  On a machine with the card and without
+JAX, run them without the suite's conftest (which imports JAX):
 `python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider`.
 
 Tolerances: hit prims agree on >= 99.99% of rays; t, u, v within 1e-5
@@ -291,6 +291,81 @@ def test_gather_rows_backward_launches_k4(dev):
     ref = table.detach().cpu().requires_grad_(True)
     hashgrid.hashgrid_encode(ref, x.cpu(), spec).square().sum().backward()
     torch.testing.assert_close(table.grad.cpu(), ref.grad, rtol=1e-4, atol=1e-6)
+
+
+# K5's cases: the stage-0 step (262,144 points, rows for the backward), a
+# point count that is not a multiple of a block's 16 points, the material
+# grid at a bounce re-query's shape, the occupancy update (2,097,152 points
+# under no_grad: no rows written)
+K5_CASES = {"train0": ("nerf", 262_144, True), "ragged": ("nerf", 5_003, True),
+            "material": ("material", 29_460, True), "occupancy": ("nerf", 2_097_152, False)}
+
+
+def k5_grid(which):
+    from mirres_restir_nerf_mesh_torch.models.material import MaterialSpec
+
+    if which == "material":
+        return MaterialSpec(bound=1.0).grid
+    return hashgrid.HashGridSpec(num_levels=16, log2_hashmap_size=19, desired_resolution=2048)
+
+
+def k5_inputs(dev, which, P, seed=21):
+    """(spec, table, x, u): points inside the box, a twentieth of them on
+    a face or outside it."""
+    spec = k5_grid(which)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.rand((spec.n_params, 2), generator=g, device=dev) - 0.5
+    x = torch.rand((P, 3), generator=g, device=dev) * 2.0 - 1.0
+    edge = torch.rand((P, 3), generator=g, device=dev) < 0.05
+    x = torch.where(edge, torch.sign(x) * (1.0 + (torch.rand((P, 3), generator=g, device=dev)
+                                                  < 0.5).float() * 0.25), x)
+    return spec, table, x, torch.rand((P, 3), generator=g, device=dev)
+
+
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_hashgrid_encode_kernel_equals_plain(dev, case):
+    """K5 against its plain version on the card: rows and features equal
+    bit for bit; one launch a call; no rows written under no_grad."""
+    which, P, grad = K5_CASES[case]
+    spec, table, x, u = k5_inputs(dev, which, P)
+    before = launches("hashgrid_encode")
+    feats, rows = hashgrid.one_corner_kernel(table, x, u, spec, with_rows=grad)
+    torch.cuda.synchronize()
+    assert launches("hashgrid_encode") == before + 1
+    p_feats, p_rows = hashgrid.one_corner_plain(table, x, u, spec)
+    assert same_bits(feats, p_feats)
+    if grad:
+        assert same_bits(rows, p_rows)
+    else:
+        assert rows is None
+    table.requires_grad_(grad)
+    with torch.set_grad_enabled(grad):
+        got = hashgrid.hashgrid_encode(table, x, spec, stochastic_u=u)
+    assert launches("hashgrid_encode") == before + 2
+    assert same_bits(got.detach(), p_feats)
+    assert (got.grad_fn is not None) == grad
+
+
+@pytest.mark.parametrize("which", ["nerf", "material"])
+def test_hashgrid_encode_kernel_table_gradient(dev, which):
+    """The table gradient through K5's rows and K4: within K4's tolerance of
+    the plain scatter-add of the same cotangent over the plain rows; the
+    one-corner path uploads no corners."""
+    from mirres_restir_nerf_mesh_torch.utils.profiling import counters
+
+    spec, table, x, u = k5_inputs(dev, which, 100_003, seed=22)
+    table.requires_grad_(True)
+    before = counters()
+    out = hashgrid.hashgrid_encode(table, x, spec, stochastic_u=u)
+    cot = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(23), device=dev)
+    (g,) = torch.autograd.grad(out, table, cot)
+    torch.cuda.synchronize()
+    after = counters()
+    assert after.get("launches.hashgrid_encode", 0) == before.get("launches.hashgrid_encode", 0) + 1
+    assert after.get("launches.scatter_add", 0) == before.get("launches.scatter_add", 0) + 1
+    assert after.get("sync.hashgrid_corners", 0) == before.get("sync.hashgrid_corners", 0)
+    rows = hashgrid.one_corner_plain(table.detach(), x, u, spec)[1]
+    assert scatter_within(g, rows, cot.reshape(*rows.shape, 2), spec.n_params)
 
 
 @pytest.mark.parametrize("split", [1, None])
