@@ -1,34 +1,28 @@
 """Multi-resolution hash-grid encoder, forward (counterpart of
 mirres_restir_nerf_mesh_tpu/ops/hashgrid.py).
 
-Same level layout as the reference (dense levels with stride resolution+1,
-xor-hashed levels with primes (1, 2654435761, 805459861) modulo the level
-size).  The reference hashes in uint32 and lets products wrap; here the
-values ride in int64 and every product is masked to 32 bits, which gives the
-same indices.  Two paths: exact trilinear interpolation over the 8 corners,
-and the one-corner stochastic estimator that picks corner bit
-``u_d < frac_d`` per axis (unbiased; the bounce material re-query uses it).
-The reference's dense levels (table of at least (resolution+1)^3 rows) read
-their corners through a packed-cell table whose axes run (z, y, x) while
-the cell id runs (x, y, z): corner (cx, cy, cz) there reads the table row of
-grid point (x+cz, y+cy, z+cx) and weighs it as corner (cx, cy, cz).  The
-port reproduces that pairing so the features match.
+The level layout is the reference's (dense levels with stride
+resolution+1, xor-hashed levels with primes (1, 2654435761, 805459861)
+modulo the level size), worked out once per grid spec (``HashGridSpec.layout``;
+on a device, ``level_tensors``).  One formula, ``grid_rows``, maps every
+level's integer grid points to table rows: the exact encode's 8 corners,
+the one-corner encode's one and the TV loss's 4 points.  The one-corner
+estimator picks corner bit ``u_d < frac_d`` per axis (unbiased; the bounce
+material re-query uses it).  The reference's dense levels (table of at
+least (resolution+1)^3 rows) read their corners through a packed-cell table
+whose axes run (z, y, x) while the cell id runs (x, y, z): corner
+(cx, cy, cz) there reads the table row of grid point (x+cz, y+cy, z+cx) and
+weighs it as corner (cx, cy, cz); the layout's corner table keeps that
+pairing so the features match.
 
-The exact encode reads its table rows through one ``GatherRows`` over the
-absolute row ids of all levels ([N, 8L]): the forward is a plain row index
-(the reference's ``jnp.take``), the backward one scatter-add into the whole
-table, kernel K4 on the card (ops/scatter.py).  The one-corner encode is
-``OneCornerEncode``: on the card kernel K5 (csrc/hashgrid_encode.cu) forms
-the [N, L] row ids and gathers every level's features in one launch; on
-the CPU its plain version (``encode_rows`` and the same row index) runs.
-Its backward is the same K4 scatter-add, over the rows K5 wrote.  The
-reference splits that backward per level, and sends its packed dense
-levels through XLA's scatter, only because its MXU one-hot must fit VMEM;
-atomics have no such limit and compute the same sums.
-``hashgrid_tv_loss`` is formed over all levels at once (``tv_rows``: the
-rows of every level in one pass, a fixed number of operators) and reads
-them through one ``GatherRows`` as well, so its table gradient is one K4
-launch too.
+The exact encode reads its rows through one ``GatherRows`` over every
+level's row ids ([N, 8L]): the forward is a plain row index (the
+reference's ``jnp.take``), the backward one scatter-add into the whole
+table, kernel K4 on the card (ops/scatter.py).  The one-corner encode
+(``OneCornerEncode``, kernel K5 on the card) and the TV loss take the same
+K4 backward.  The reference splits that backward per level, and sends its
+packed dense levels through XLA's scatter, only because its MXU one-hot
+must fit VMEM; atomics have no such limit and compute the same sums.
 """
 
 from __future__ import annotations
@@ -37,7 +31,7 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,27 +72,89 @@ class HashGridSpec:
     def output_dim(self) -> int:
         return self.num_levels * self.level_dim
 
-    def level_meta(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-        """(offsets[num_levels+1], scales, resolutions, is_dense)."""
+    @property
+    @functools.lru_cache(maxsize=None)
+    def layout(self) -> LevelLayout:
+        """Every level's constants, worked out once per spec (equal specs
+        share them)."""
         max_params = 2 ** self.log2_hashmap_size
-        offsets, scales, resolutions, dense = [0], [], [], []
-        offset = 0
-        for lvl in range(self.num_levels):
-            scale = self.base_resolution * (self.scale_factor ** lvl) - 1.0
-            res = int(math.ceil(scale)) + 1
-            n_dense = (res + 1) ** self.input_dim
-            params_in_level = int(math.ceil(min(max_params, n_dense) / 8) * 8)
-            scales.append(scale)
-            resolutions.append(res)
-            dense.append(n_dense <= max_params)
-            offset += params_in_level
-            offsets.append(offset)
-        return (np.array(offsets, dtype=np.int64), np.array(scales, dtype=np.float64),
-                np.array(resolutions, dtype=np.int64), np.array(dense, dtype=bool))
+        # a Python power a level, as the reference computes the scales
+        scales = np.array([self.base_resolution * (self.scale_factor ** lvl) - 1.0
+                           for lvl in range(self.num_levels)], dtype=np.float64)
+        resolutions = np.ceil(scales).astype(np.int64) + 1
+        R1 = resolutions + 1
+        # R1^3 in Python integers (a fine level's overflows int64), capped past the table size
+        n_dense = np.array([min(r ** self.input_dim, max_params + 1) for r in R1.tolist()])
+        sizes = -(-np.minimum(max_params, n_dense) // 8) * 8
+        dense = n_dense <= max_params
+        packed = dense & (sizes >= n_dense)
+        return LevelLayout(
+            offsets=np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64), sizes=sizes,
+            scales=scales, scales32=scales.astype(np.float32), resolutions=resolutions, dense=dense,
+            mult=np.where(dense[:, None], np.stack([np.ones_like(R1), R1, R1 * R1], axis=1),
+                          np.array(PRIMES, dtype=np.int64)),
+            packed=packed, corners=np.where(packed[:, None, None], CORNERS[:, ::-1], CORNERS))
 
     @property
     def n_params(self) -> int:
-        return int(self.level_meta()[0][-1])
+        return int(self.layout.offsets[-1])
+
+
+@dataclass(frozen=True, eq=False)
+class LevelLayout:
+    """Every level's constants, host arrays of [L] unless shaped otherwise."""
+
+    offsets: np.ndarray      # int64 [L + 1]: level l owns rows offsets[l]:offsets[l + 1]
+    sizes: np.ndarray        # int64: each level's rows, a multiple of 8
+    scales: np.ndarray       # float64: the positions' scale, base * factor^l - 1
+    scales32: np.ndarray     # float32: the scales rounded as every path multiplies by them
+    resolutions: np.ndarray  # int64: ceil(scale) + 1
+    dense: np.ndarray        # bool: a row for each grid point (else xor-hashed)
+    mult: np.ndarray         # int64 [L, 3]: per-axis factors, (1, R1, R1^2) dense, PRIMES hashed
+    packed: np.ndarray       # bool: dense with at least R1^3 rows, corners run (z, y, x)
+    corners: np.ndarray      # int64 [L, 8, 3]: the grid-point offset corner k reads at level l
+
+
+class LevelTensors(NamedTuple):
+    """A layout's constants on one device, shaped to broadcast with [..., L, K, 3] grid points."""
+
+    scales: torch.Tensor    # [L, 1, 1] float32
+    mult: torch.Tensor      # [L, 1, 3] int64
+    dense: torch.Tensor     # [L, 1] bool
+    sizes: torch.Tensor     # [L, 1] int64
+    offsets: torch.Tensor   # [L, 1] int64
+    corners: torch.Tensor   # [L, 8, 3] int64, the layout's corner table
+    steps: torch.Tensor     # [4, 3] int64: the TV loss's base point, +x, +y, +z
+
+
+@functools.lru_cache(maxsize=None)
+def level_tensors(spec: HashGridSpec, device: torch.device) -> LevelTensors:
+    """The layout's ``LevelTensors`` on ``device``, made once per spec and
+    device in two uploads."""
+    lay, L = spec.layout, spec.num_levels
+    ints = np.concatenate([lay.mult, lay.dense[:, None], lay.sizes[:, None],
+                           lay.offsets[:-1, None], lay.corners.reshape(L, 24)], axis=1)
+    count_upload("hashgrid_levels", device)
+    ints = torch.as_tensor(ints, device=device)[:, None]                 # [L,1,30]
+    count_upload("hashgrid_levels", device)
+    scales = torch.as_tensor(lay.scales32, device=device).view(L, 1, 1)
+    steps = torch.cat([torch.zeros((1, 3), dtype=torch.int64, device=device),
+                       torch.eye(3, dtype=torch.int64, device=device)])
+    return LevelTensors(scales, ints[..., 0:3], ints[..., 3] != 0, ints[..., 4], ints[..., 5],
+                        ints[:, 0, 6:].reshape(L, 8, 3), steps)
+
+
+def grid_rows(pg: torch.Tensor, steps: torch.Tensor, lv: LevelTensors) -> torch.Tensor:
+    """The absolute row ids [..., L, K] int64 of the integer grid points
+    ``pg + steps`` ([..., L, 1, 3] plus steps broadcasting to [..., L, K, 3]):
+    a dense level's sum of the per-axis products, a hashed level's xor of
+    them, masked to 32 bits, modulo the level's size, plus its offset.  The
+    reference hashes in uint32 and lets products wrap; int64 products masked
+    after the xor give the same bits (& distributes over ^)."""
+    prod = (pg + steps).mul_(lv.mult)
+    a, b, c = prod.unbind(-1)
+    idx = torch.where(lv.dense, prod.sum(-1), a ^ b ^ c)
+    return idx.bitwise_and_(_U32).remainder_(lv.sizes).add_(lv.offsets)
 
 
 def init_hashgrid(generator: Optional[torch.Generator], spec: HashGridSpec,
@@ -107,20 +163,6 @@ def init_hashgrid(generator: Optional[torch.Generator], spec: HashGridSpec,
     u = torch.rand((spec.n_params, spec.level_dim), generator=generator,
                    device=resolve_device(device))
     return u * (2 * std) - std
-
-
-def level_index(pgc: torch.Tensor, dense: bool, resolution: int, size: int) -> torch.Tensor:
-    """Row index within a level of integer grid points pgc [..., 3] (int64)."""
-    if dense:
-        R1 = resolution + 1
-        idx = (pgc[..., 0] + pgc[..., 1] * R1 + pgc[..., 2] * (R1 * R1)) & _U32
-    else:
-        idx = (
-            ((pgc[..., 0] * PRIMES[0]) & _U32)
-            ^ ((pgc[..., 1] * PRIMES[1]) & _U32)
-            ^ ((pgc[..., 2] * PRIMES[2]) & _U32)
-        )
-    return idx % size
 
 
 class GatherRows(torch.autograd.Function):
@@ -152,47 +194,27 @@ def encode_rows(x: torch.Tensor, spec: HashGridSpec, bound: float = 1.0,
     """The table rows an encode reads: (rows [N, 8L] int32 absolute row ids,
     level-major, and the trilinear weights [N, L, 8]) on the exact path,
     (rows [N, L], None) on the stochastic one."""
+    lv = level_tensors(spec, x.device)
+    N, L = x.shape[0], spec.num_levels
     # clip as jnp.clip does: a point on the box face takes half the gradient
     # (it matters to the normal by autograd of a sample clamped to the box)
     x01 = (x + bound) / (2.0 * bound)
     x01 = torch.minimum(torch.maximum(x01, x01.new_zeros(())), x01.new_ones(()))
-    offsets, scales, resolutions, dense = spec.level_meta()
-    count_upload("hashgrid_corners", x.device)
-    corners = torch.as_tensor(CORNERS, device=x.device)                 # [8,3]
-    cmask = corners == 1
-    corners_zyx = corners.flip(1)
-    rows, weights = [], []
-    for lvl in range(spec.num_levels):
-        offset = int(offsets[lvl])
-        size = int(offsets[lvl + 1] - offsets[lvl])
-        pos = x01 * float(scales[lvl]) + 0.5
-        pg = torch.floor(pos)
-        frac = pos - pg
-        pgi = pg.to(torch.int64)
-        if stochastic_u is not None:
-            pgc = pgi + (stochastic_u < frac).to(torch.int64)
-            rows.append(offset + level_index(pgc, bool(dense[lvl]), int(resolutions[lvl]), size)[:, None])
-            continue
-        w = torch.where(cmask[None], frac[:, None, :], 1.0 - frac[:, None, :])
-        weights.append(w[..., 0] * w[..., 1] * w[..., 2])               # [N,8]
-        R1 = int(resolutions[lvl]) + 1
-        packed = bool(dense[lvl]) and size >= R1 * R1 * R1
-        pgc = pgi[:, None, :] + (corners_zyx if packed else corners)[None]   # [N,8,3]
-        rows.append(offset + level_index(pgc, bool(dense[lvl]), int(resolutions[lvl]), size))
-    idx = torch.cat(rows, dim=1).to(torch.int32)
-    return idx, (torch.stack(weights, dim=1) if weights else None)
-
-
-def _level_ints(spec: HashGridSpec) -> np.ndarray:
-    """Each level's integer constants, [L, 6] int64: ``level_index``'s
-    per-axis factors (1, R1, R1^2) on a dense level, the primes on a
-    hashed one; dense (0 or 1); size; offset."""
-    offsets, _, resolutions, dense = spec.level_meta()
-    R1 = resolutions + 1
-    mult = np.where(dense[:, None], np.stack([np.ones_like(R1), R1, R1 * R1], axis=1),
-                    np.array(PRIMES, dtype=np.int64)[None])
-    return np.concatenate([mult, dense[:, None], np.diff(offsets)[:, None], offsets[:-1, None]],
-                          axis=1)
+    pos = x01.view(N, 1, 1, 3) * lv.scales + 0.5                          # [N,L,1,3]
+    pg = torch.floor(pos)
+    frac = pos - pg
+    pg = pg.to(torch.int64)
+    if stochastic_u is not None:
+        rows = grid_rows(pg, stochastic_u.reshape(N, 1, 1, 3) < frac, lv)
+        return rows.to(torch.int32).view(N, L), None
+    # two corners at a time: all eight at once would hold [N, L, 8, 3] int64
+    # grid points, 3 KB a point at 16 levels, above the encode's peak
+    rows = torch.cat([grid_rows(pg, c, lv).to(torch.int32) for c in lv.corners.split(2, dim=1)],
+                     dim=2)
+    # corner (cx, cy, cz) weighs (frac or 1 - frac by its bit) along x, y, z
+    wx, wy, wz = torch.stack([1.0 - frac, frac], dim=-1).unbind(-2)      # [N,L,1,2]
+    w = wx[..., :, None, None] * wy[..., None, :, None] * wz[..., None, None, :]
+    return rows.view(N, 8 * L), w.view(N, L, 8)
 
 
 MAX_LEVELS = 32
@@ -212,16 +234,16 @@ class _LevelBlock(ctypes.Structure):
 @functools.lru_cache(maxsize=None)
 def level_block(spec: HashGridSpec) -> _LevelBlock:
     """The ``_LevelBlock`` of a grid spec, made once per spec on the host."""
-    if not 1 <= spec.num_levels <= MAX_LEVELS:
-        raise ValueError(f"hashgrid_encode: K5 takes 1 to {MAX_LEVELS} levels, "
-                         f"got {spec.num_levels}")
-    ints = _level_ints(spec)
-    blk = _LevelBlock(num_levels=spec.num_levels,
-                      dense=sum(1 << lvl for lvl in range(spec.num_levels) if ints[lvl, 3]))
-    for lvl, scale in enumerate(spec.level_meta()[1].astype(np.float32)):
-        blk.scale[lvl] = scale
-        blk.offset[lvl], blk.size[lvl] = int(ints[lvl, 5]), int(ints[lvl, 4])
-        blk.mult[lvl][:] = [int(m) & _U32 for m in ints[lvl, 0:3]]
+    L = spec.num_levels
+    if not 1 <= L <= MAX_LEVELS:
+        raise ValueError(f"hashgrid_encode: K5 takes 1 to {MAX_LEVELS} levels, got {L}")
+    lay = spec.layout
+    blk = _LevelBlock(num_levels=L, dense=sum(1 << lvl for lvl in range(L) if lay.dense[lvl]))
+    blk.scale[:L] = lay.scales32.tolist()
+    blk.offset[:L] = lay.offsets[:-1].tolist()
+    blk.size[:L] = lay.sizes.tolist()
+    for lvl in range(L):
+        blk.mult[lvl][:] = (lay.mult[lvl] & _U32).tolist()
     return blk
 
 
@@ -339,41 +361,18 @@ def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpe
     return feats.reshape(N, L * C)
 
 
-@functools.lru_cache(maxsize=None)
-def _tv_levels(spec: HashGridSpec, device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """The TV loss's per-level constants on ``device``, made once per spec
-    and device: (scales [L, 1, 1] float32, steps [4, 3] (base, +x, +y, +z),
-    mult [L, 1, 3], dense [L, 1], sizes [L, 1], offsets [L, 1]), from
-    ``_level_ints``."""
-    count_upload("tv_levels", device)
-    ints = torch.as_tensor(_level_ints(spec), dtype=torch.int64, device=device)[:, None]  # [L,1,6]
-    count_upload("tv_levels", device)
-    scales = torch.as_tensor(spec.level_meta()[1], dtype=torch.float32,
-                             device=device)[:, None, None]
-    steps = torch.cat([torch.zeros((1, 3), dtype=torch.int64, device=device),
-                       torch.eye(3, dtype=torch.int64, device=device)])
-    return (scales, steps, ints[..., 0:3], ints[..., 3] != 0, ints[..., 4], ints[..., 5])
-
-
 def tv_rows(x: torch.Tensor, spec: HashGridSpec, bound: float = 1.0) -> torch.Tensor:
     """The rows the TV loss reads at points x [P, 3]: every level's base
-    grid point and its +x, +y, +z neighbours, as ``level_index`` gives
-    them, as [P, 4L] int32 absolute row ids, level-major.  All levels at
-    once, in a number of operators that does not grow with the levels."""
-    scales, steps, mult, dense, sizes, offsets = _tv_levels(spec, x.device)
+    grid point and its +x, +y, +z neighbours, as [P, 4L] int32 absolute row
+    ids, level-major.  All levels at once, in a number of operators that
+    does not grow with the levels."""
+    lv = level_tensors(spec, x.device)
     x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
     P = x01.shape[0]
     # x01 * scale and + 0.5 round apart, as in the encode; the sum is at
     # least 0.5, so the conversion's truncation is its floor
-    pg = (x01.view(P, 1, 1, 3) * scales + 0.5).to(torch.int64)                 # [P,L,1,3]
-    prod = (pg + steps).mul_(mult)                                             # [P,L,4,3]
-    # a dense level masks the sum of the products, a hashed level xors the
-    # masked products; masking after the xor is the same (& distributes
-    # over ^)
-    a, b, c = prod.unbind(-1)
-    idx = torch.where(dense, prod.sum(-1), a ^ b ^ c)
-    idx = idx.bitwise_and_(_U32).remainder_(sizes).add_(offsets)
-    return idx.to(torch.int32).view(P, 4 * spec.num_levels)
+    pg = (x01.view(P, 1, 1, 3) * lv.scales + 0.5).to(torch.int64)             # [P,L,1,3]
+    return grid_rows(pg, lv.steps, lv).to(torch.int32).view(P, 4 * spec.num_levels)
 
 
 def hashgrid_tv_loss(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSpec,

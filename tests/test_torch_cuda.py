@@ -5,7 +5,9 @@ bit; on a bare mesh through ``dense_intersect`` and as the cluster tracer
 kind's dense pass), K4 (csrc/scatter_add.cu, its 1-D and [N, Kc] entries
 and a contention-heavy input) and K5 (csrc/hashgrid_encode.cu, rows and
 features equal bit for bit, the table gradient through K4) against their
-plain PyTorch versions on the same inputs, and the launch counters.
+plain PyTorch versions on the same inputs, and the launch counters; the
+exact hash-grid encode against its level-by-level form (bit equality, no
+upload a call, peak device memory).
 Skipped without a CUDA device.  On a machine with the card and without
 JAX, run them without the suite's conftest (which imports JAX):
 `python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider`.
@@ -22,7 +24,7 @@ import torch
 
 from mirres_restir_nerf_mesh_torch.ops import cluster_bvh, dense_tracer, hashgrid, scatter, tile_tracer
 
-from test_torch_helpers import bumpy_sphere, launches, shell_rays
+from test_torch_helpers import bumpy_sphere, encode_rows_per_level, launches, shell_rays
 
 pytestmark = pytest.mark.cuda
 
@@ -346,6 +348,12 @@ def test_hashgrid_encode_kernel_equals_plain(dev, case):
     assert (got.grad_fn is not None) == grad
 
 
+def moved_syncs(before, after):
+    """The ``sync.*`` counters that moved between two ``counters()`` readings."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if k.startswith("sync.") and v != before.get(k, 0)}
+
+
 @pytest.mark.parametrize("which", ["nerf", "material"])
 def test_hashgrid_encode_kernel_table_gradient(dev, which):
     """The table gradient through K5's rows and K4: within K4's tolerance of
@@ -363,9 +371,60 @@ def test_hashgrid_encode_kernel_table_gradient(dev, which):
     after = counters()
     assert after.get("launches.hashgrid_encode", 0) == before.get("launches.hashgrid_encode", 0) + 1
     assert after.get("launches.scatter_add", 0) == before.get("launches.scatter_add", 0) + 1
-    assert after.get("sync.hashgrid_corners", 0) == before.get("sync.hashgrid_corners", 0)
+    assert moved_syncs(before, after) == {}
     rows = hashgrid.one_corner_plain(table.detach(), x, u, spec)[1]
     assert scatter_within(g, rows, cot.reshape(*rows.shape, 2), spec.n_params)
+
+
+# the exact encode's shapes: the material grid at about the covered pixels
+# of an 800x800 frame (29,460 at 256x256, times (800/256)^2), the NeRF grid
+# at the eval render's chunk
+EXACT_CASES = {"material": ("material", 300_000), "nerf": ("nerf", 65_536)}
+
+
+@pytest.mark.parametrize("case", list(EXACT_CASES))
+def test_exact_encode_uploads_nothing_and_keeps_its_peak(dev, monkeypatch, case):
+    """The exact encode with its table gradient, all levels at once, against
+    the loop over the levels (``encode_rows_per_level``) on the same inputs:
+    rows, weights and features equal bit for bit, the table gradient within
+    K4's tolerance; once the grid's constants are on the card a call moves
+    no sync counter; its peak device memory is at most 10% above the loop's."""
+    from mirres_restir_nerf_mesh_torch.utils.profiling import counters
+
+    which, P = EXACT_CASES[case]
+    spec, table, x, _ = k5_inputs(dev, which, P, seed=24)
+    table.requires_grad_(True)
+    cot = torch.randn((P, spec.output_dim), generator=torch.Generator(device=dev).manual_seed(25),
+                      device=dev)
+
+    def encode():
+        """(features, table gradient, peak bytes above what was allocated
+        before the call)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = hashgrid.hashgrid_encode(table, x, spec)
+        (g,) = torch.autograd.grad(out, table, cot)
+        torch.cuda.synchronize()
+        return out.detach(), g, torch.cuda.max_memory_allocated() - base
+
+    rows, w = hashgrid.encode_rows(x, spec)         # the grid's constants reach the card here
+    ref_rows, ref_w = encode_rows_per_level(x, spec)
+    assert same_bits(rows, ref_rows) and same_bits(w, ref_w)
+    del ref_rows, ref_w
+    before = counters()
+    out, g, peak = encode()
+    assert moved_syncs(before, counters()) == {}
+    L, C = spec.num_levels, spec.level_dim
+    upd = (cot.view(P, L, 1, C) * w[..., None]).reshape(P, 8 * L, C)
+    assert scatter_within(g, rows, upd, spec.n_params)
+    del rows, w, upd, g
+    monkeypatch.setattr(hashgrid, "encode_rows", encode_rows_per_level)
+    ref_out, _, ref_peak = encode()
+    assert same_bits(out, ref_out)
+    print(f"exact encode {case} {P}: peak {peak} B above the call's start, "
+          f"level by level {ref_peak} B")
+    assert peak <= 1.1 * ref_peak, (peak, ref_peak)
 
 
 @pytest.mark.parametrize("split", [1, None])

@@ -45,7 +45,9 @@ def points(N, seed, bound=1.0):
 def test_hashgrid_exact_and_stochastic(name):
     jspec = jhg.HashGridSpec(level_dim=2, **SPECS[name])
     tspec = thg.HashGridSpec(level_dim=2, **SPECS[name])
-    assert tspec.level_meta()[0].tolist() == jspec.level_meta()[0].tolist()
+    lay = tspec.layout
+    for got, ref in zip((lay.offsets, lay.scales, lay.resolutions, lay.dense), jspec.level_meta()):
+        assert got.dtype == ref.dtype and np.array_equal(got, ref)
     emb = jhg.init_hashgrid(jax.random.PRNGKey(1), jspec, std=1.0)
     x = points(2048, 3)
     ref = jhg.hashgrid_encode(emb, jnp.asarray(x), jspec)
@@ -61,14 +63,20 @@ def test_hashgrid_exact_and_stochastic(name):
 
 def test_hash_index_uint32_wrap_exact():
     """The xor-hash in uint32 (products by primes above 2^31 wrap) against
-    the int64-and-mask form, at grid coordinates up to 2^20."""
+    the hash grid's row formula (``grid_rows``, int64 products masked to
+    32 bits), at grid coordinates up to 2^20, on one hashed level."""
     rng = np.random.RandomState(0)
     pg = rng.randint(0, 1 << 20, (4096, 3)).astype(np.uint32)
     primes = jnp.asarray(jhg._PRIMES)
     p = jnp.asarray(pg)
+    pts = t(pg.astype(np.int64)).view(4096, 1, 1, 3)
     for size in (524288, 12345, 8):
         ref = ((p[..., 0] * primes[0]) ^ (p[..., 1] * primes[1]) ^ (p[..., 2] * primes[2])) % jnp.uint32(size)
-        got = thg.level_index(t(pg.astype(np.int64)), False, 0, size)
+        lv = thg.LevelTensors(scales=None, mult=torch.tensor(thg.PRIMES).view(1, 1, 3),
+                              dense=torch.tensor([[False]]), sizes=torch.tensor([[size]]),
+                              offsets=torch.zeros((1, 1), dtype=torch.int64), corners=None,
+                              steps=None)
+        got = thg.grid_rows(pts, torch.zeros(3, dtype=torch.int64), lv).view(4096)
         np.testing.assert_array_equal(n(got), np.asarray(ref).astype(np.int64))
 
 

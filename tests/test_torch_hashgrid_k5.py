@@ -1,13 +1,20 @@
-"""The one-corner hash-grid encode (ops/hashgrid.py ``OneCornerEncode``,
-kernel K5 on the card) on the CPU, where it runs its plain version:
+"""The hash grid's rows and the one-corner encode (ops/hashgrid.py
+``OneCornerEncode``, kernel K5 on the card) on the CPU, where it runs its
+plain version:
 
-- through ``hashgrid_encode`` it equals the encode as ``encode_rows`` with
-  ``stochastic_u`` followed by ``GatherRows`` forms it, bit for bit in
-  rows, features and the table gradient, for the stage-0 NeRF grid and the
-  material grid, with and without a gradient, on points inside the box, on
-  its faces, outside it, and for no point at all;
-- the per-level block handed to K5's launcher equals ``level_meta()`` and
-  the TV loss's ``_tv_levels``;
+- ``encode_rows``, all levels at once, equals the loop over the levels
+  (the tests' copy, layout and row formula written out level by level) bit
+  for bit: the exact path's rows and weights, with the features and the
+  table gradient they give, and the one-corner rows, on points inside the
+  box, on its faces, outside it and for no point at all;
+- through ``hashgrid_encode`` the one-corner encode equals the encode as
+  ``encode_rows`` with ``stochastic_u`` followed by ``GatherRows`` forms
+  it, bit for bit in rows, features and the table gradient, for the
+  stage-0 NeRF grid and the material grid, with and without a gradient,
+  on points inside the box, on its faces, outside it, and for no point at
+  all;
+- the per-level block handed to K5's launcher equals the grid's layout, as
+  do the layout's device constants (``level_tensors``);
 - K5's arithmetic, mirrored in numpy from that block (fp32 operations
   rounded one by one, uint32 products wrapping), gives the plain rows;
 - what K5 does not take raises before any launch.
@@ -23,7 +30,7 @@ import torch
 from mirres_restir_nerf_mesh_torch.models.material import MaterialSpec
 from mirres_restir_nerf_mesh_torch.ops import hashgrid as thg
 
-from test_torch_helpers import launches
+from test_torch_helpers import encode_rows_per_level, hashgrid_level_meta, launches
 
 # the train0 cell's NeRF grid (16 levels of 2^19, levels 0-4 dense) and the
 # material grid of stage 1's bounce re-query (16 levels, resolution 4096)
@@ -94,21 +101,56 @@ def test_one_corner_encode_under_no_grad_keeps_no_rows(tables, grid):
 
 @pytest.mark.parametrize("grid", list(GRIDS))
 def test_level_block_equals_level_meta_and_tv_levels(grid):
+    """K5's block equals the grid's layout, and so do the layout's device
+    constants; the layout equals the tests' level-by-level copy."""
     spec = GRIDS[grid]
-    blk = thg.level_block(spec)
+    blk, lay = thg.level_block(spec), spec.layout
+    lv = thg.level_tensors(spec, torch.device("cpu"))
     L = spec.num_levels
-    offsets, scales, _, dense = spec.level_meta()
-    tv_scales, _, mult, tv_dense, sizes, tv_offsets = thg._tv_levels(spec, torch.device("cpu"))
+    for got, ref in zip((lay.offsets, lay.scales, lay.resolutions, lay.dense),
+                        hashgrid_level_meta(spec)):
+        assert np.array_equal(got, ref)
     assert blk.num_levels == L
-    assert [bool(blk.dense >> lvl & 1) for lvl in range(L)] == dense.tolist() \
-        == tv_dense.reshape(-1).tolist()
+    assert [bool(blk.dense >> lvl & 1) for lvl in range(L)] == lay.dense.tolist() \
+        == lv.dense.reshape(-1).tolist()
     got_scales = np.array(blk.scale[:L], dtype=np.float32)
-    assert np.array_equal(got_scales, scales.astype(np.float32))
-    assert np.array_equal(got_scales, tv_scales.reshape(-1).numpy())
-    assert list(blk.offset[:L]) == offsets[:-1].tolist() == tv_offsets.reshape(-1).tolist()
-    assert list(blk.size[:L]) == np.diff(offsets).tolist() == sizes.reshape(-1).tolist()
-    assert [list(m) for m in blk.mult[:L]] == mult.reshape(L, 3).tolist()
-    assert all(list(m) == list(thg.PRIMES) for m, d in zip(blk.mult[:L], dense) if not d)
+    assert np.array_equal(got_scales, lay.scales.astype(np.float32))
+    assert np.array_equal(got_scales, lv.scales.reshape(-1).numpy())
+    assert list(blk.offset[:L]) == lay.offsets[:-1].tolist() == lv.offsets.reshape(-1).tolist()
+    assert list(blk.size[:L]) == np.diff(lay.offsets).tolist() == lv.sizes.reshape(-1).tolist()
+    assert [list(m) for m in blk.mult[:L]] == lay.mult.tolist() == lv.mult.reshape(L, 3).tolist()
+    assert all(list(m) == list(thg.PRIMES) for m, d in zip(blk.mult[:L], lay.dense) if not d)
+    assert lv.corners.tolist() == lay.corners.tolist()
+
+
+@pytest.mark.parametrize("where", ["inside", "faces", "outside", "empty"])
+@pytest.mark.parametrize("path", ["exact", "one_corner"])
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_encode_rows_equal_the_per_level_loop(tables, grid, path, where):
+    """All levels at once against the loop over the levels, bit for bit: the
+    rows and, on the exact path, the weights, the features and the table
+    gradient through ``GatherRows`` (the exact encode of ``hashgrid_encode``)."""
+    spec = GRIDS[grid]
+    assert spec.layout.dense.any() and not spec.layout.dense.all()
+    x, u = points(where)
+    u = u if path == "one_corner" else None
+    rows, w = thg.encode_rows(x, spec, stochastic_u=u)
+    ref_rows, ref_w = encode_rows_per_level(x, spec, stochastic_u=u)
+    assert rows.dtype == torch.int32 and torch.equal(rows, ref_rows)
+    if path == "one_corner":
+        assert w is None
+        return
+    assert w.dtype == torch.float32 and torch.equal(w.view(torch.int32), ref_w.view(torch.int32))
+    N, L, C = x.shape[0], spec.num_levels, spec.level_dim
+    table = tables[grid].clone().requires_grad_(True)
+    got = thg.hashgrid_encode(table, x, spec)
+    vals = thg.GatherRows.apply(table, ref_rows).reshape(N, L, 8, C)
+    ref = torch.sum(vals * ref_w[..., None], dim=2).reshape(N, L * C)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    cot = torch.randn(got.shape, generator=torch.Generator().manual_seed(7))
+    (g_got,) = torch.autograd.grad(got, table, cot)
+    (g_ref,) = torch.autograd.grad(ref, table, cot)
+    assert torch.equal(g_got.view(torch.int32), g_ref.view(torch.int32))
 
 
 def k5_mirror(x, u, spec, bound=1.0):

@@ -280,3 +280,71 @@ def lpips_weights_npz(path):
     params = jax.jit(random_params)(jax.random.PRNGKey(0))
     np.savez(path, **{k: np.asarray(v) for k, v in params.items()})
     return str(path)
+
+
+def hashgrid_level_meta(spec):
+    """(offsets [L+1], scales, resolutions, dense) of a hash grid, worked out
+    level by level as the JAX reference's ``level_meta`` does: the tests'
+    copy of the layout, independent of ``HashGridSpec.layout``."""
+    import math
+
+    max_params = 2 ** spec.log2_hashmap_size
+    offsets, scales, resolutions, dense = [0], [], [], []
+    for lvl in range(spec.num_levels):
+        scale = spec.base_resolution * (spec.scale_factor ** lvl) - 1.0
+        res = int(math.ceil(scale)) + 1
+        n_dense = (res + 1) ** spec.input_dim
+        offsets.append(offsets[-1] + int(math.ceil(min(max_params, n_dense) / 8) * 8))
+        scales.append(scale)
+        resolutions.append(res)
+        dense.append(n_dense <= max_params)
+    return (np.array(offsets, dtype=np.int64), np.array(scales, dtype=np.float64),
+            np.array(resolutions, dtype=np.int64), np.array(dense, dtype=bool))
+
+
+def hashgrid_level_rows(pgc, dense, resolution, size):
+    """Row index within one level of integer grid points pgc [..., 3]
+    (int64), the reference's formula written out for one level: a dense
+    level's stride (1, R1, R1^2), a hashed level's xor of the products by
+    the primes (1, 2654435761, 805459861), each masked to 32 bits as uint32
+    products wrap; modulo the level's size."""
+    u32 = 0xFFFFFFFF
+    if dense:
+        R1 = resolution + 1
+        idx = (pgc[..., 0] + pgc[..., 1] * R1 + pgc[..., 2] * (R1 * R1)) & u32
+    else:
+        idx = ((pgc[..., 0] & u32) ^ ((pgc[..., 1] * 2654435761) & u32)
+               ^ ((pgc[..., 2] * 805459861) & u32))
+    return idx % size
+
+
+def encode_rows_per_level(x, spec, bound=1.0, stochastic_u=None):
+    """The hash grid's ``encode_rows`` as a loop over the levels forms it,
+    one level's rows and weights at a time: (rows [N, 8L] int32, weights
+    [N, L, 8]) exact, (rows [N, L], None) with ``stochastic_u``.  A dense
+    level's 8 corners read grid points in (z, y, x) order, as the
+    reference's packed-cell table pairs them."""
+    x01 = (x + bound) / (2.0 * bound)
+    x01 = torch.minimum(torch.maximum(x01, x01.new_zeros(())), x01.new_ones(()))
+    offsets, scales, resolutions, dense = hashgrid_level_meta(spec)
+    corners = torch.tensor([[(k >> 2) & 1, (k >> 1) & 1, k & 1] for k in range(8)],
+                           device=x.device)                             # [8,3], x slowest
+    rows, weights = [], []
+    for lvl in range(spec.num_levels):
+        offset, size = int(offsets[lvl]), int(offsets[lvl + 1] - offsets[lvl])
+        res, dn = int(resolutions[lvl]), bool(dense[lvl])
+        pos = x01 * float(scales[lvl]) + 0.5
+        pg = torch.floor(pos)
+        frac = pos - pg
+        pgi = pg.to(torch.int64)
+        if stochastic_u is not None:
+            pgc = pgi + (stochastic_u < frac).to(torch.int64)
+            rows.append(offset + hashgrid_level_rows(pgc, dn, res, size)[:, None])
+            continue
+        w = torch.where(corners[None] == 1, frac[:, None, :], 1.0 - frac[:, None, :])
+        weights.append(w[..., 0] * w[..., 1] * w[..., 2])               # [N,8]
+        packed = dn and size >= (res + 1) ** 3
+        pgc = pgi[:, None, :] + (corners.flip(1) if packed else corners)[None]
+        rows.append(offset + hashgrid_level_rows(pgc, dn, res, size))
+    idx = torch.cat(rows, dim=1).to(torch.int32)
+    return idx, (torch.stack(weights, dim=1) if weights else None)

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
 
 from mirres_restir_nerf_mesh_tpu.models import nerf as jnerf
 from mirres_restir_nerf_mesh_tpu.ops import hashgrid as jhg
@@ -42,24 +43,33 @@ from mirres_restir_nerf_mesh_torch.render import volume as tvol
 from mirres_restir_nerf_mesh_torch.train.stage0 import tree_leaves, tree_unflatten
 from mirres_restir_nerf_mesh_torch.utils.math import trunc_exp as t_trunc_exp
 
-from test_torch_helpers import TORCH_THREADS, n, stage0_spec_kwargs, t
+from test_torch_helpers import (TORCH_THREADS, hashgrid_level_meta, hashgrid_level_rows, n,
+                                stage0_spec_kwargs, t)
 
 torch.set_num_threads(TORCH_THREADS)
 
 
 @pytest.fixture(autouse=True)
 def pinned_rounding():
-    """Each comparison runs with torch's intra-op thread count set here (it
-    is process-wide, and any module or test a worker ran before may have
-    changed it) and with XLA's persistent compile cache off (an executable
-    from it may have been compiled by another process, on another host's
-    CPU: the cache lives in the working tree), so both sides round the same
-    way in every worker and every run."""
+    """Each comparison runs with torch on one intra-op thread, the calling
+    thread, and with XLA's persistent compile cache off, so both sides round
+    the same way in every worker and every run.  One thread: the rows an
+    OpenMP worker thread computes can follow state it took from the process
+    when it was made (a rounding mode it inherits moves exactly those rows);
+    in one xdist worker the forward's last rows came out ~1e-6 lower, 4 of
+    3,000 sigmas 1.3e-5 off, its first rows bit for bit as in a fresh
+    process.
+    The cache: an executable from it may have been compiled by another
+    process, on another host's CPU (it lives in the working tree); JAX
+    decides once per process whether to use it, so the switch is followed
+    by ``reset_cache`` each way."""
     threads, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
-    torch.set_num_threads(TORCH_THREADS)
+    torch.set_num_threads(1)
     jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
     yield
     jax.config.update("jax_enable_compilation_cache", cache)
+    compilation_cache.reset_cache()
     torch.set_num_threads(threads)
 
 
@@ -162,10 +172,11 @@ CELL_GRID = thg.HashGridSpec(num_levels=16, log2_hashmap_size=19, desired_resolu
 
 
 def tv_rows_per_level(x, spec, bound=1.0):
-    """The TV loss's rows as a loop over the levels forms them: the
-    batched ``tv_rows``'s yardstick."""
+    """The TV loss's rows as a loop over the levels forms them, each level's
+    layout and row formula written out in the tests: the batched
+    ``tv_rows``'s yardstick."""
     x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
-    offsets, scales, resolutions, dense = spec.level_meta()
+    offsets, scales, resolutions, dense = hashgrid_level_meta(spec)
     steps = torch.tensor([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]])
     cols = []
     for lvl in range(spec.num_levels):
@@ -173,7 +184,7 @@ def tv_rows_per_level(x, spec, bound=1.0):
         pg = torch.floor(x01 * float(scales[lvl]) + 0.5).to(torch.int64)
         pgc = pg[:, None, :] + steps[None]                                  # [P,4,3]
         cols.append(int(offsets[lvl]) +
-                    thg.level_index(pgc, bool(dense[lvl]), int(resolutions[lvl]), size))
+                    hashgrid_level_rows(pgc, bool(dense[lvl]), int(resolutions[lvl]), size))
     return torch.cat(cols, dim=1).to(torch.int32)
 
 
@@ -204,7 +215,7 @@ def tv_points(where, P=5000, seed=8):
 
 @pytest.mark.parametrize("where", ["inside", "faces", "outside"])
 def test_tv_rows_equal_the_per_level_loop(where):
-    offsets, _, _, dense = CELL_GRID.level_meta()
+    offsets, dense = CELL_GRID.layout.offsets, CELL_GRID.layout.dense
     assert dense.any() and not dense.all()
     x = tv_points(where)
     rows = thg.tv_rows(x, CELL_GRID)
