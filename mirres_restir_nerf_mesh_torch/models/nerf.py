@@ -73,11 +73,14 @@ def init_nerf(generator: Optional[torch.Generator], spec: NeRFSpec,
 
 
 def _mlp(ws, h, dtype):
+    # without autograd the ReLU overwrites its input: the occupancy update's
+    # [2^21, 64] hidden layer is then held once, not twice
+    relu = torch.relu if torch.is_grad_enabled() else torch.relu_
     h = h.to(dtype)
     for l, w in enumerate(ws):
         h = h @ w.to(dtype)
         if l != len(ws) - 1:
-            h = torch.relu(h)
+            h = relu(h)
     return h.to(torch.float32)
 
 
@@ -87,8 +90,17 @@ def density(params: Dict[str, Any], x: torch.Tensor, spec: NeRFSpec,
     """x [N,3] -> {'sigma': [N], 'geo_feat': [N,15]} (raw SDF in sdf mode).
     stochastic_u [N, 3]: the one-corner hash-grid estimator's uniforms;
     max_level: progressive levels (hashgrid_encode)."""
-    h = hashgrid_encode(params["encoder"], x, spec.grid, bound=spec.bound,
-                        stochastic_u=stochastic_u, max_level=max_level)
+    return density_from_features(params, hashgrid_encode(
+        params["encoder"], x, spec.grid, bound=spec.bound, stochastic_u=stochastic_u,
+        max_level=max_level), spec)
+
+
+def density_from_features(params: Dict[str, Any], h: torch.Tensor,
+                          spec: NeRFSpec) -> Dict[str, torch.Tensor]:
+    """``density`` from the hash-grid features h [N, L*C]."""
+    # cast first: called with the encode's output, nothing then holds the
+    # float32 features while the first layer runs (the occupancy update's peak)
+    h = h.to(spec.compute_dtype)
     h = _mlp(params["sigma_net"], h, spec.compute_dtype)
     raw = h[..., 0]
     return {"sigma": raw if spec.sdf else trunc_exp(raw), "geo_feat": h[..., 1:]}
@@ -111,6 +123,13 @@ def forward(params: Dict[str, Any], x: torch.Tensor, d: torch.Tensor, spec: NeRF
             max_level=None, stochastic_u: Optional[torch.Tensor] = None):
     """Full field: sigma [N], rgb [N,3]."""
     res = density(params, x, spec, stochastic_u=stochastic_u, max_level=max_level)
+    return res["sigma"], color(params, res["geo_feat"], d, spec)
+
+
+def forward_from_features(params: Dict[str, Any], h: torch.Tensor, d: torch.Tensor,
+                          spec: NeRFSpec):
+    """``forward`` from the hash-grid features h [N, L*C]: sigma [N], rgb [N,3]."""
+    res = density_from_features(params, h, spec)
     return res["sigma"], color(params, res["geo_feat"], d, spec)
 
 

@@ -385,7 +385,12 @@ def hashgrid_tv_loss(embeddings: torch.Tensor, x: torch.Tensor, spec: HashGridSp
     ``GatherRows``, so the gradient is one scatter-add (K4 on the card),
     and the levels' and axes' means, which share the denominator P * C,
     are one sum of squares."""
-    idx = tv_rows(x[:max_points], spec, bound)
+    return tv_loss_of_rows(embeddings, tv_rows(x[:max_points], spec, bound), spec)
+
+
+def tv_loss_of_rows(embeddings: torch.Tensor, idx: torch.Tensor,
+                    spec: HashGridSpec) -> torch.Tensor:
+    """``hashgrid_tv_loss`` from the rows ``tv_rows`` gives."""
     P, L, C = idx.shape[0], spec.num_levels, embeddings.shape[1]
     base, nbrs = GatherRows.apply(embeddings, idx).view(P, L, 4, C).split([1, 3], dim=2)
     return F.mse_loss(nbrs, base.expand_as(nbrs), reduction="sum") / (P * C)

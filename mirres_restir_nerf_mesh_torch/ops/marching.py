@@ -17,6 +17,12 @@ the MXU and reads single-cascade occupancy through supercell bitmask rows;
 both are exact and both are TPU devices.  Here the selected candidates are
 scattered to (ray, rank among the selected), targets that are unique, and
 the occupancy byte is a plain gather: the same values.
+
+The transmittance (``ExclusiveTransmittance``) runs forward as
+``torch.cumprod`` of the shifted ``1 - alpha``; its backward is
+``cumprod_backward``, torch's own formula for cumprod's gradient in the same
+operations (so the same bits) but without the host test for zeros that
+torch's makes to choose between its two forms.
 """
 
 from __future__ import annotations
@@ -25,8 +31,6 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-
-from ..utils.profiling import count_sync
 
 SQRT3 = math.sqrt(3.0)
 
@@ -144,6 +148,49 @@ def march_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, occ: torch.Tensor, ne
     return MarchResult(xyzs=xyzs, dirs=rays_d, ts=ts_out, dts=dts_out, valid=valid)
 
 
+def cumprod_backward(g: torch.Tensor, y: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """The gradient of y [N, K] from the gradient g of T = cumprod(y, -1), in
+    the operations of torch's own formula: the form it takes where any y is
+    0, which gives the bits of its other form where none is, so no test on
+    the host picks between them.  Before a row's first zero: the reversed
+    cumulative sum of T g over y; at the first zero: the products of the y
+    up to the second zero against g, times T before the zero; after: 0."""
+    w = T * g
+    zeros = (y == 0).cumsum(-1)
+    before = zeros == 0
+    grad = torch.where(before, w.masked_fill(~before, 0.0).flip(-1).cumsum(-1).flip(-1).div(y),
+                       0.0)
+    one = zeros == 1
+    first = one.max(-1, keepdim=True).indices
+    at_first = torch.zeros_like(one).scatter_(-1, first, True) & one
+    between = one & ~at_first
+    at = (y.masked_fill(~between, 1.0).cumprod(-1).mul_(g.masked_fill(zeros != 1, 0.0))
+          .sum(-1, keepdim=True)
+          .mul_(torch.gather(T, -1, (first - 1).relu_()).masked_fill_(first == 0, 1.0)))
+    return torch.where(at_first, at, grad)
+
+
+class ExclusiveTransmittance(torch.autograd.Function):
+    """x [N, K] (``1 - alpha``) -> T [N, K], T_j the product of x_i over
+    i < j: ``torch.cumprod`` of the shifted x, and its gradient
+    (``cumprod_backward``), bit for bit, with nothing synchronized; x's last
+    column gets a zero gradient, as it weighs nothing."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = torch.cat([torch.ones_like(x[:, :1]), x[:, :-1]], dim=-1)
+        T = torch.cumprod(y, dim=-1)
+        ctx.save_for_backward(y, T)
+        return T
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        y, T = ctx.saved_tensors
+        gy = cumprod_backward(g, y, T)
+        return torch.cat([gy[:, 1:], torch.zeros_like(gy[:, :1])], dim=-1)
+
+
 class CompositeResult(NamedTuple):
     weights: torch.Tensor      # [N, K]
     weights_sum: torch.Tensor  # [N]
@@ -155,19 +202,15 @@ def composite_rays(sigmas: torch.Tensor, rgbs: torch.Tensor, ts: torch.Tensor, d
                    valid: torch.Tensor, T_thresh: float = 1e-4,
                    alpha_mode: bool = False) -> CompositeResult:
     """alpha = 1 - exp(-sigma dt) (or sigma clipped to [0, 1] in alpha_mode,
-    the NeuS path); T by exclusive cumprod of (1 - alpha); samples where T
-    has fallen below T_thresh weigh zero."""
+    the NeuS path); T by exclusive cumprod of (1 - alpha)
+    (``ExclusiveTransmittance``); samples where T has fallen below T_thresh
+    weigh zero."""
     if alpha_mode:
         alpha = torch.clamp(sigmas, 0.0, 1.0)
     else:
         alpha = 1.0 - torch.exp(-sigmas * dts)
     alpha = torch.where(valid, alpha, 0.0)
-    one_minus = 1.0 - alpha
-    # cumprod's backward tests its input for zeros on the host (more syncs
-    # where one is 0: an alpha of exactly 1)
-    count_sync("composite_backward", one_minus.is_cuda and one_minus.requires_grad)
-    T = torch.cumprod(torch.cat([torch.ones_like(one_minus[:, :1]), one_minus[:, :-1]], dim=-1),
-                      dim=-1)
+    T = ExclusiveTransmittance.apply(1.0 - alpha)
     w = torch.where(T >= T_thresh, alpha * T, 0.0)
     return CompositeResult(weights=w, weights_sum=w.sum(dim=-1), depth=(w * ts).sum(dim=-1),
                            image=(w[..., None] * rgbs).sum(dim=-2))

@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..models import nerf as nerf_model
-from ..ops.marching import composite_rays, march_rays, near_far_from_aabb
+from ..ops.marching import MarchResult, composite_rays, march_rays, near_far_from_aabb
 from ..parallel.mesh import Shard, all_gather_rows
 from ..utils.compact import apply_in_chunks
 from ..utils.math import safe_normalize
@@ -54,17 +54,11 @@ def render_rays(params: Dict[str, Any], occ: torch.Tensor, rays_o: torch.Tensor,
     one-corner encode uniforms for the P = ``field_points`` evaluated
     points (None: exact encode); with ``shard``, P counts the whole
     batch's points and the rays are the shard's rows."""
-    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
-    if cam_near_far is not None:
-        nears = torch.maximum(nears, cam_near_far[:, 0])
-        fars = torch.minimum(fars, cam_near_far[:, 1])
-    with torch.no_grad(), span("march"):
-        m = march_rays(rays_o, rays_d, occ, nears, fars, bound=spec.bound, K=K,
-                       max_steps=max_steps, dt_gamma=dt_gamma, noise=noise, contract=contract,
-                       n_candidates=march_candidates)
+    m, pts, dirs = march_points(occ, rays_o, rays_d, spec, aabb, K=K, max_steps=max_steps,
+                                dt_gamma=dt_gamma, min_near=min_near, noise=noise,
+                                contract=contract, cam_near_far=cam_near_far,
+                                march_candidates=march_candidates)
     N, Kk = m.ts.shape
-    pts = m.xyzs.reshape(-1, 3)
-    dirs = safe_normalize(m.dirs[:, None, :].expand(N, Kk, 3)).reshape(-1, 3)
     results: Dict[str, torch.Tensor] = {}
 
     def chunked(fn, *arrays):
@@ -99,30 +93,72 @@ def render_rays(params: Dict[str, Any], occ: torch.Tensor, rays_o: torch.Tensor,
         elif compact:
             valid_flat = m.valid.reshape(-1)
             if shard is None:
-                # stable valid-first order; its first M positions are unique,
-                # the valid ones among them the first M valid samples in ray order
-                idx = torch.sort((~valid_flat).to(torch.int8), stable=True).indices[:compact_points]
+                idx = compact_index(valid_flat, compact_points)
             else:
                 idx, su = _global_compaction(valid_flat, compact_points, shard, stochastic_u)
             sig_c, rgb_c = chunked(field, pts[idx], dirs[idx], *su)
-            packed = torch.cat([sig_c[:, None].to(torch.float32), rgb_c.to(torch.float32)], dim=1)
-            packed = torch.where(valid_flat[idx, None], packed, 0.0)
-            # unique targets: a copy whose backward is a gather
-            got = torch.zeros((N * Kk, 4), dtype=packed.dtype, device=packed.device)
-            got = got.index_copy(0, idx, packed)
-            sig_for_comp, rgbs = got[:, 0].reshape(N, Kk), got[:, 1:4]
+            sig_flat, rgbs = spread_field(sig_c, rgb_c, valid_flat, idx, N * Kk)
+            sig_for_comp = sig_flat.reshape(N, Kk)
         else:
             sigmas, rgbs = chunked(field, pts, dirs, *su)
             sig_for_comp = sigmas.reshape(N, Kk)
+    results.update(shade(m, sig_for_comp, rgbs, bg_color, T_thresh, alpha_mode),
+                   xyzs=m.xyzs, valid=m.valid, sigmas=sig_for_comp, num_points=m.valid.sum())
+    return results
+
+
+def march_points(occ: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                 spec: nerf_model.NeRFSpec, aabb: torch.Tensor, *, K: int, max_steps: int,
+                 dt_gamma: float, min_near: float, noise: Optional[torch.Tensor], contract: bool,
+                 cam_near_far: Optional[torch.Tensor], march_candidates: Optional[int]):
+    """``render_rays``' march (no gradient) -> (MarchResult, the samples'
+    positions [N*K, 3] and unit directions [N*K, 3])."""
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
+    if cam_near_far is not None:
+        nears = torch.maximum(nears, cam_near_far[:, 0])
+        fars = torch.minimum(fars, cam_near_far[:, 1])
+    with torch.no_grad(), span("march"):
+        m = march_rays(rays_o, rays_d, occ, nears, fars, bound=spec.bound, K=K,
+                       max_steps=max_steps, dt_gamma=dt_gamma, noise=noise, contract=contract,
+                       n_candidates=march_candidates)
+    N, Kk = m.ts.shape
+    pts = m.xyzs.reshape(-1, 3)
+    dirs = safe_normalize(m.dirs[:, None, :].expand(N, Kk, 3)).reshape(-1, 3)
+    return m, pts, dirs
+
+
+def compact_index(valid_flat: torch.Tensor, M: int) -> torch.Tensor:
+    """The first M positions of the stable valid-first order of the samples:
+    unique, the valid ones among them the first M valid samples in ray
+    order."""
+    return torch.sort((~valid_flat).to(torch.int8), stable=True).indices[:M]
+
+
+def spread_field(sig_c: torch.Tensor, rgb_c: torch.Tensor, valid_flat: torch.Tensor,
+                 idx: torch.Tensor, n: int):
+    """The compacted samples' sigma [M] and rgb [M, 3] back to their slots
+    among n -> (sigma [n], rgb [n, 3]), zero where no valid sample lands."""
+    packed = torch.cat([sig_c[:, None].to(torch.float32), rgb_c.to(torch.float32)], dim=1)
+    packed = torch.where(valid_flat[idx, None], packed, 0.0)
+    # unique targets: a copy whose backward is a gather
+    got = torch.zeros((n, 4), dtype=packed.dtype, device=packed.device)
+    got = got.index_copy(0, idx, packed)
+    return got[:, 0], got[:, 1:4]
+
+
+def shade(m: MarchResult, sig_for_comp: torch.Tensor, rgbs: torch.Tensor, bg_color,
+          T_thresh: float, alpha_mode: bool) -> Dict[str, torch.Tensor]:
+    """Composite the samples' sigma [N, K] and rgb [N*K, 3] over the
+    background -> image, depth, weights, weights_sum."""
+    N, Kk = m.ts.shape
     with span("composite"):
         comp = composite_rays(sig_for_comp, rgbs.reshape(N, Kk, 3), m.ts, m.dts, m.valid,
                               T_thresh=T_thresh, alpha_mode=alpha_mode)
-    bg = (torch.ones((1, 3), device=rays_o.device) if bg_color is None
-          else torch.as_tensor(bg_color, dtype=torch.float32, device=rays_o.device).reshape(-1, 3))
-    results.update(image=comp.image + (1.0 - comp.weights_sum)[:, None] * bg, depth=comp.depth,
-                   weights=comp.weights, weights_sum=comp.weights_sum, xyzs=m.xyzs, valid=m.valid,
-                   sigmas=sig_for_comp, num_points=m.valid.sum())
-    return results
+    dev = m.ts.device
+    bg = (torch.ones((1, 3), device=dev) if bg_color is None
+          else torch.as_tensor(bg_color, dtype=torch.float32, device=dev).reshape(-1, 3))
+    return {"image": comp.image + (1.0 - comp.weights_sum)[:, None] * bg, "depth": comp.depth,
+            "weights": comp.weights, "weights_sum": comp.weights_sum}
 
 
 def _global_compaction(valid_flat: torch.Tensor, M: int, shard: Shard,

@@ -44,6 +44,8 @@ from ..render.volume import field_points, render_rays
 from ..utils.profiling import count, count_sync, count_upload, span
 
 B1, B2 = 0.9, 0.999
+ADAM_EPS = 1e-15             # outside the root
+EMA_DECAY = 0.95
 TV_POINTS = 4096             # hashgrid_tv_loss's points: the batch's first marched samples
 
 
@@ -100,11 +102,7 @@ def adam_update(leaves: List[torch.Tensor], grads: List[Optional[torch.Tensor]],
     the count before the step, the bias corrections at count + 1 (float32
     scalars); a leaf without a gradient takes a zero one; new tensors out,
     the inputs untouched."""
-    count = st.count.cpu()
-    neg_lr = -float(lr(count))
-    count_inc = count + 1
-    bc1 = float(1.0 - torch.tensor(B1, dtype=torch.float32) ** count_inc)
-    bc2 = float(1.0 - torch.tensor(B2, dtype=torch.float32) ** count_inc)
+    neg_lr, bc1, bc2, count_inc = adam_scalars(st.count, lr)
     outs, mus, nus = [], [], []
     for p, g, mu, nu in zip(leaves, grads, st.mu, st.nu):
         g = torch.zeros_like(p) if g is None else g
@@ -115,7 +113,20 @@ def adam_update(leaves: List[torch.Tensor], grads: List[Optional[torch.Tensor]],
         outs.append(p + neg_lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + eps)))
         mus.append(mu)
         nus.append(nu)
-    return outs, AdamState(count=count_inc.to(torch.int32), mu=mus, nu=nus)
+    return outs, AdamState(count=count_inc, mu=mus, nu=nus)
+
+
+def adam_scalars(count: torch.Tensor, lr: Callable[[torch.Tensor], torch.Tensor]
+                 ) -> Tuple[float, float, float, torch.Tensor]:
+    """Adam's scalars of the step after ``count`` steps, float32 values on
+    the host: (-lr at the count, 1 - b1^(count + 1), 1 - b2^(count + 1),
+    count + 1 as an int32 CPU scalar)."""
+    count = count.cpu()
+    neg_lr = -float(lr(count))
+    count_inc = count + 1
+    bc1 = float(1.0 - torch.tensor(B1, dtype=torch.float32) ** count_inc)
+    bc2 = float(1.0 - torch.tensor(B2, dtype=torch.float32) ** count_inc)
+    return neg_lr, bc1, bc2, count_inc.to(torch.int32)
 
 
 class Stage0Optimizer:
@@ -131,7 +142,7 @@ class Stage0Optimizer:
         return adam_init(tree_leaves(params))
 
     def step(self, params, grads, state: AdamState):
-        leaves, state = adam_update(tree_leaves(params), grads, state, self.lr, 1e-15)
+        leaves, state = adam_update(tree_leaves(params), grads, state, self.lr, ADAM_EPS)
         return tree_unflatten(params, iter(leaves)), state
 
 
@@ -213,8 +224,18 @@ def init_state(generator: Optional[torch.Generator], cfg: Config, spec: nerf_mod
 
 
 def _aabb(cfg: Config, device) -> torch.Tensor:
+    """The scene box [6] on ``device``, uploaded once per box and device
+    (callers only read it)."""
     b = cfg.bound
     box = cfg.scene_aabb if cfg.scene_aabb is not None else (-b, -b, -b, b, b, b)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _box_on(tuple(float(v) for v in box), dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _box_on(box: Tuple[float, ...], device: torch.device) -> torch.Tensor:
     count_upload("aabb", device)
     return torch.tensor(box, dtype=torch.float32, device=device)
 
@@ -276,6 +297,28 @@ def stage0_loss(params: Any, occ: torch.Tensor, batch: Dict[str, torch.Tensor],
         stochastic_u=rand.stochastic_u if cfg.stochastic_interp else None,
         compact_points=cfg.num_points if cfg.adaptive_num_rays else None, shard=shard)
 
+    loss, mse = render_loss(out, batch, cfg, s, mean)
+    if cfg.lambda_tv > 0:
+        loss = loss + cfg.lambda_tv * hashgrid_tv_loss(params["encoder"],
+                                                       _tv_points(out["xyzs"], shard), spec.grid,
+                                                       spec.bound, max_points=TV_POINTS)
+    num_points = out["num_points"]
+    if shard is not None:
+        num_points = all_reduce_scalars({"n": num_points}, shard.dp)["n"].to(num_points.dtype)
+    aux = {"loss": loss.detach(),
+           "psnr": psnr_of(mse),
+           "num_points": num_points}
+    return loss, aux
+
+
+def psnr_of(mse: torch.Tensor) -> torch.Tensor:
+    return -10.0 * torch.log10(torch.clamp_min(mse.detach(), 1e-12))
+
+
+def render_loss(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], cfg: Config, s,
+                mean: Callable) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The loss of a rendered batch without the TV term -> (loss, the rgb
+    MSE); ``s`` (the step, float32) is read only by the depth term."""
     pred, gt = out["image"], batch["pixels"]
     mse = mean((pred - gt) ** 2)
     loss = cfg.lambda_rgb * mse
@@ -296,17 +339,7 @@ def stage0_loss(params: Any, occ: torch.Tensor, batch: Dict[str, torch.Tensor],
         mask = (batch["depth"] > 0).to(torch.float32)
         w = batch.get("depth_weight", 1.0)
         loss = loss + lam * mean(w * mask * (out["depth"] - batch["depth"]) ** 2)
-    if cfg.lambda_tv > 0:
-        loss = loss + cfg.lambda_tv * hashgrid_tv_loss(params["encoder"],
-                                                       _tv_points(out["xyzs"], shard), spec.grid,
-                                                       spec.bound, max_points=TV_POINTS)
-    num_points = out["num_points"]
-    if shard is not None:
-        num_points = all_reduce_scalars({"n": num_points}, shard.dp)["n"].to(num_points.dtype)
-    aux = {"loss": loss.detach(),
-           "psnr": -10.0 * torch.log10(torch.clamp_min(mse.detach(), 1e-12)),
-           "num_points": num_points}
-    return loss, aux
+    return loss, mse
 
 
 def loss_and_grads(params: Any, occ: torch.Tensor, batch: Dict[str, torch.Tensor],
@@ -357,11 +390,17 @@ def make_train_step(cfg: Config, spec: nerf_model.NeRFSpec, sampler,
         with span("optimizer"):
             params, opt_state = opt.step(state.params, grads, state.opt_state)
             with torch.no_grad():
-                ema = tree_unflatten(params, iter([0.95 * e + 0.05 * p for e, p in zip(
-                    tree_leaves(state.ema_params), tree_leaves(params))]))
+                ema = tree_unflatten(params, iter([
+                    EMA_DECAY * e + (1 - EMA_DECAY) * p
+                    for e, p in zip(tree_leaves(state.ema_params), tree_leaves(params))]))
         return TrainState(params, opt_state, ema, state.occ, state.step + 1), aux
 
     train_step.march_candidates = n_march
+    if dp is None:
+        from .stage0_graph import GraphedStep, graphable
+
+        if graphable(cfg, sampler):
+            return GraphedStep(cfg, spec, sampler, n_march)
     return train_step
 
 
